@@ -9,22 +9,37 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 Phases, one line each (any failure raises: non-zero exit, no final line):
 
 1. device — the card's ``name, power.limit`` from nvidia-smi;
-2. build — compiles the three kernels from ``richdem_tpu_torch/csrc``
-   (or loads them when the libraries are newer than the sources);
+2. build — compiles the five kernels from ``richdem_tpu_torch/csrc`` and the
+   port's native engine, all at once (or loads them when the libraries are
+   newer than the sources);
 3. kernel vs plain — each kernel against its plain PyTorch version on the
-   card, on a ragged 1000×1100 Perlin DEM with nodata holes;
-4. native gates — fill bit-exact against the single-core C++ engine at
-   2048×2176 and 4096×4224 (multigrid warm start), accumulation exact at
-   2048×2176, D8 codes within 1e-5 of the cells (float32 slope ties);
+   card, on a ragged 1000×1100 Perlin DEM with nodata holes (the distance
+   sweep in every mode, the terrain kernel for all 8 attributes);
+4. native gates — fill bit-exact against the port's copy of the
+   single-core C++ engine at 2048×2176 and 4096×4224 (multigrid warm
+   start), then D8 and flat resolution of those ε = 0 fills bitwise against
+   the engine's; accumulation exact at 2048×2176, D8 codes within 1e-5 of
+   the cells (float32 slope ties);
 5. main path — ``make_pipeline((10240, 10240), eps=0, with_twi=True)`` on a
    device Perlin DEM: converged, mass-conserving, every kernel launched;
    three timed steps and the peak device memory;
-6. kernels at the main path's shapes — each kernel bitwise against its
-   plain version at 10240² (fill also at the 1280² multigrid coarse grid,
-   fill and accumulation also transposed), then one call of each timed.
+6. flats at full size — ``resolve_flats`` of the main path's ε = 0 output
+   (real flat lakes): converged, no interior NO_FLOW left, and the resolved
+   codes' accumulation conserves mass exactly;
+7. config 2 (``BASELINE.json``; ``bench.py``'s ``fill_flats``) at 10240²:
+   ``auto_epsilon`` → ε-fill → D8 → ``resolve_flats``; converged, its
+   kernels launched; three timed steps and the peak memory;
+8. terrain path — ``terrain_attribute`` slope (radians) and aspect at
+   10240², the terrain kernel launched;
+9. kernels at the paths' shapes — each kernel against its plain version at
+   10240² (fill also at the 1280² multigrid coarse grid, fill,
+   accumulation and distance sweeps also transposed), then one call of each
+   timed beside its bound.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.  The script imports no JAX.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  The line before the last is the per-kernel JSON record; the last
+line is ``{"ok": true, "device": {...}}``.  The script imports no JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -33,12 +48,55 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ND = -9999.0
 MAIN = 10240
-STEPS = 3  # timed main-path steps
+STEPS = 3  # timed steps of each full-size path
+RAGGED = (1000, 1100)  # kernel vs plain, seams and ragged edges
+#: native gates: (shape, seed, pits) of the depression DEMs
+NATIVE_GATES = (((2048, 2176), 9, 24), ((4096, 4224), 21, 60))
+
+#: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+#: bandwidth and float32 outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_FLOPS_S = 67e12
+
+#: Per cell of one call, as (bytes, float operations): each input read
+#: once and each output written once; the arithmetic the function does.
+#:   fill_sweep  W, Z in, W out (4+4+4); 3 adds, 3 min, 1 max
+#:   d8          z, mask in, code out (4+1+1); 8 × (sub, div, compare)
+#:   accum_sweep acc, w, code in, acc out (4+4+1+4); up to 9 adds
+#:   dist_sweep  w, z, flags in, w out (4+4+1+4); 3 × (compare, add, min)
+#:   terrain     z, mask in, out (4+1+4); about 40 with the atan
+#: Bytes bound every one of them on an H100.
+COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
+        "dist_sweep": (13, 9), "terrain": (9, 40)}
+
+#: The TPU kernel each CUDA kernel replaces (file:line of the body), and
+#: the second TPU kernel it covers where there is one.
+REPLACES = {
+    "fill_sweep": ("richdem_tpu/ops/pallas_folded.py:133",
+                   "richdem_tpu/ops/pallas_sweeps.py:89"),
+    "d8": ("richdem_tpu/ops/pallas_stencils.py:41", None),
+    "accum_sweep": ("richdem_tpu/ops/pallas_folded.py:329",
+                    "richdem_tpu/ops/pallas_sweeps.py:201"),
+    "dist_sweep": ("richdem_tpu/ops/pallas_scan.py:1121",
+                   "richdem_tpu/ops/pallas_sweeps.py:396"),
+    "terrain": ("richdem_tpu/ops/pallas_stencils.py:218", None),
+}
+#: The path whose launch counts each kernel's record reports.
+PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
+           "dist_sweep": "config2", "terrain": "terrain"}
+
+
+
+#: Terrain attributes finished with atan/atan2: the kernel and torch may
+#: call different implementations, so these are held to ATAN_RTOL.
+ATAN = ("slope_radians", "slope_degrees", "aspect")
+ATAN_RTOL = 1e-6
 
 
 def log(phase, msg):
@@ -72,22 +130,36 @@ def cuda_ms(fn, reps=1):
 
 
 def max_abs(a, b):
+    """Largest |a - b| over the cells where neither is NaN."""
     import torch
 
-    if a.dtype == torch.int8:
-        return float((a.int() - b.int()).abs().max())
-    return float((a.double() - b.double()).abs().max())
+    if a.dtype in (torch.int8, torch.int32):
+        return float((a.long() - b.long()).abs().max())
+    ok = ~(torch.isnan(a) | torch.isnan(b))
+    if not bool(ok.any()):
+        return 0.0
+    return float((a[ok].double() - b[ok].double()).abs().max())
 
 
-def bitwise(name, pairs, err, what):
-    """Hold each (kernel, plain) result pair bitwise; fold the largest
-    difference into ``err[name]``."""
+def bitwise(name, pairs, err, what, rtol=0.0):
+    """Hold each (kernel, plain) result pair bitwise (NaN where the other
+    has NaN), or to ``rtol`` where given; fold the largest difference into
+    ``err[name]``."""
     import torch
 
     for got, ref in pairs:
         diff = max_abs(got, ref)
         err[name] = max(err[name], diff)
-        if not torch.equal(got, ref):
+        if got.is_floating_point():
+            nan = torch.isnan(ref)
+            ok = torch.equal(torch.isnan(got), nan)
+            if ok and rtol:
+                ok = torch.allclose(got[~nan], ref[~nan], rtol=rtol, atol=0)
+            elif ok:
+                ok = torch.equal(got[~nan], ref[~nan])
+        else:
+            ok = torch.equal(got, ref)
+        if not ok:
             raise AssertionError(f"{name} differs from its plain version "
                                  f"({what}): max |diff| {diff}")
 
@@ -117,6 +189,102 @@ def fill_rotation(w, floor, eps, err, what):
             wk, wp = wk.t().contiguous(), wp.t().contiguous()
 
 
+def dist_starts(ff, ctx, modes):
+    """The start of each distance fixpoint, as flat resolution seeds it;
+    ``maxd`` starts from the ``away`` field, relaxed by the kernel."""
+    import torch
+    from richdem_tpu_torch.ops import flats, sweeps
+
+    big = torch.tensor(sweeps.BIG, device=ff["zed"].device)
+    starts = {"member": (torch.where(ff["noflow"], 0.0, big), 1.0),
+              "towards": (torch.where(ff["outlet"], 0.0, big), 1.0),
+              "away": (torch.where(ff["high_seed"], 1.0, big), 1.0)}
+    if "maxd" in modes:
+        d, _, done = sweeps.dist_fixpoint_core(
+            starts["away"][0], ctx, "away", 1.0, 256, flats.dist_sweep)
+        if not done:
+            raise AssertionError("away fixpoint did not converge")
+        d = torch.where(d < sweeps.BIG / 2, d, 0.0)
+        starts["maxd"] = (torch.where(ff["in_flat"], -d, big), 0.0)
+    return {m: starts[m] for m in modes}
+
+
+def dist_down_and_transposed_up(filled, fd, mask, modes, err, what):
+    """For each mode, a down sweep and then a transposed up sweep of the
+    distance kernel and of its plain version from the same start, results
+    and change flags held bitwise."""
+    import torch
+    from richdem_tpu_torch.ops import flats, sweeps
+
+    ff = flats.flat_fields(filled, fd, mask)
+    ctx = sweeps.dist_context(ff["zed"], ff["flags"])
+    z, s, z_t, s_t = ctx
+    moved = {}
+    for mode, (w0, step) in dist_starts(ff, ctx, modes).items():
+        flags = [torch.zeros(1, dtype=torch.int32, device=filled.device)
+                 for _ in range(4)]
+        wk = flats.dist_sweep(w0, z, s, mode, step, False, flags[0])
+        wp = sweeps.dist_sweep_plain(w0, z, s, mode, step, False, flags[1])
+        bitwise("dist_sweep", ((wk, wp), (flags[0], flags[1])), err,
+                f"{what}, {mode}, down")
+        wt = wk.t().contiguous()
+        wk = flats.dist_sweep(wt, z_t, s_t, mode, step, True, flags[2])
+        wp = sweeps.dist_sweep_plain(wt, z_t, s_t, mode, step, True,
+                                     flags[3])
+        bitwise("dist_sweep", ((wk, wp), (flags[2], flags[3])), err,
+                f"{what}, {mode}, transposed up")
+        moved[mode] = int((wk.t() < w0).sum())
+    return moved
+
+
+def terrain_attributes(z, mask, zscale, cellsize, err, what):
+    """The terrain kernel against its plain version, all 8 attributes."""
+    from richdem_tpu_torch.ops import terrain
+
+    for attrib in terrain.TERRAIN_ATTRIBUTES:
+        got = terrain.terrain_fused(z, mask, zscale, cellsize, attrib)
+        ref = terrain.terrain_plain(z, mask, zscale, cellsize, attrib)
+        bitwise("terrain", ((got, ref),), err, f"{what}, {attrib}",
+                rtol=ATAN_RTOL if attrib in ATAN else 0.0)
+
+
+def run_path(name, kernels, needed, fn):
+    """Run one path with every launch count set to 0 just before it; read
+    the counts just after and fail unless each of ``needed`` launched."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    missing = [n for n in needed if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels of the path never launched: "
+                             f"{missing} ({launches})")
+    return result, launches
+
+
+def timed_steps(step, *args):
+    """STEPS calls of ``step``, each timed with CUDA events and on the
+    host; returns (event seconds, host seconds, last output)."""
+    import torch
+
+    ev_secs, host_secs, out = [], [], None
+    for _ in range(STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        host_secs.append(time.perf_counter() - t0)
+        ev_secs.append(start.elapsed_time(end) / 1e3)
+    return ev_secs, host_secs, out
+
+
 def phase_device():
     import torch
 
@@ -131,10 +299,17 @@ def phase_device():
 
 
 def phase_build(kernels):
+    """Build every kernel and the native engine at once (one nvcc per
+    source and one g++, all started together)."""
+    from richdem_tpu_torch import native
+
     t0 = time.perf_counter()
-    for k in kernels:
-        k.function()
-    log("build", f"{len(kernels)} kernels loaded in "
+    with ThreadPoolExecutor(max_workers=len(kernels) + 1) as pool:
+        jobs = [pool.submit(k.function) for k in kernels]
+        jobs.append(pool.submit(native._load))
+        for job in jobs:
+            job.result()
+    log("build", f"{len(kernels)} kernels and the native engine loaded in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k.name} " + ("cached" if k.build_seconds is None
                                     else f"built {k.build_seconds:.2f} s")
@@ -145,11 +320,11 @@ def phase_build(kernels):
 def _ragged_dem(dev):
     import torch
     from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch._shared import synth
+    from richdem_tpu_torch import synth_np
 
-    z = tsynth.perlin_dem(1000, 1100, seed=5, device=dev)
-    holes = synth.with_nodata_holes(np.zeros((1000, 1100), np.float32),
-                                    no_data=1.0, seed=5, n_holes=6)
+    z = tsynth.perlin_dem(*RAGGED, seed=5, device=dev)
+    holes = synth_np.with_nodata_holes(np.zeros(RAGGED, np.float32),
+                                       no_data=1.0, seed=5, n_holes=6)
     mask = torch.from_numpy(holes == 1.0).to(dev)
     return torch.where(mask, torch.tensor(ND, device=dev), z), mask
 
@@ -159,13 +334,14 @@ def phase_kernel_vs_plain(dev, err):
     from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps
 
     z, mask = _ragged_dem(dev)
+    shape = f"{RAGGED[0]}x{RAGGED[1]}"
     neg = torch.tensor(-sweeps.BIG, device=dev)
     floor = torch.where(mask, neg, z).contiguous()
     w = torch.where(mask, neg, torch.full_like(z, sweeps.BIG)).contiguous()
 
     # fill: one sweep in each of the four directions, then the fixpoints
     for eps in (0.0, 1e-3):
-        fill_rotation(w, floor, eps, err, "1000x1100")
+        fill_rotation(w, floor, eps, err, shape)
         got, it_k, done_k = fill.fill_depressions_info(z, mask, eps=eps)
         ref, it_p, done_p = sweeps.fill_fixpoint_core(
             w, floor, float(np.float32(eps)), 256, sweeps.fill_sweep_plain)
@@ -181,7 +357,7 @@ def phase_kernel_vs_plain(dev, err):
     for topo in ("D8", "D4"):
         bitwise("d8", ((flowdirs.d8_core(filled, mask, 1.0, topo),
                         flowdirs.d8_plain(filled, mask, 1.0, topo)),),
-                err, f"{topo}, 1000x1100")
+                err, f"{topo}, {shape}")
     log("kernel-vs-plain", "D8 and D4 codes bitwise")
 
     fd = flowdirs.d8_core(filled, mask)
@@ -207,29 +383,62 @@ def phase_kernel_vs_plain(dev, err):
             f"{'bitwise' if name == 'unit' else 'allclose rtol 1e-6'} "
             f"(max |diff| {max_abs(got, ref)}, {rk}/{rp} rotations)")
 
+    # distance sweeps on the flats of this DEM's ε = 0 fill
+    filled0, _, _ = fill.fill_depressions_info(z, mask, eps=0.0)
+    fd0 = flowdirs.d8_core(filled0, mask)
+    moved = dist_down_and_transposed_up(filled0, fd0, mask,
+                                        sweeps.DIST_MODES, err, shape)
+    log("kernel-vs-plain", f"distance sweep, every mode, down and "
+        f"transposed up: bitwise (cells lowered: {moved})")
+
+    terrain_attributes(z, mask, 2.0, 3.0, err,
+                       f"{shape}, zscale 2, cellsize 3")
+    log("kernel-vs-plain", f"terrain, 8 attributes (zscale 2, cellsize 3, "
+        f"nodata): bitwise, {'/'.join(ATAN)} within rtol {ATAN_RTOL} "
+        f"(max |diff| {err['terrain']})")
+
 
 def phase_native(dev):
     import torch
+    from richdem_tpu_torch import native, synth_np
     from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch._shared import native, synth
-    from richdem_tpu_torch.ops import accum, fill, flowdirs
+    from richdem_tpu_torch.ops import accum, fill, flats, flowdirs
 
-    if not native.available():
-        raise RuntimeError("native C++ engine failed to build (g++)")
-    for (h, w), seed, pits in (((2048, 2176), 9, 24), ((4096, 4224), 21, 60)):
-        dem = synth.depression_dem(h, w, seed=seed, n_pits=pits,
-                                   dtype=np.float32)
+    for (h, w), seed, pits in NATIVE_GATES:
+        dem = synth_np.depression_dem(h, w, seed=seed, n_pits=pits,
+                                      dtype=np.float32)
         z = torch.from_numpy(dem).to(dev)
         got, iters, done = fill.fill_depressions_info(z, eps=0.0)
+        got64 = got.cpu().numpy().astype(np.float64)
         want = native.fill(dem.astype(np.float64))
         multigrid = max(h, w) >= fill.MULTISCALE_MIN
-        if not (done and np.array_equal(got.cpu().numpy().astype(np.float64),
-                                        want)):
+        if not (done and np.array_equal(got64, want)):
             raise AssertionError(f"fill {h}x{w} differs from native")
         log("native", f"fill {h}x{w} eps=0 bit-exact vs native "
             f"({iters} rotations, multigrid {multigrid})")
 
-    h, w = 2048, 2176
+        # flat resolution of the ε = 0 fill's flat lakes
+        nd = torch.zeros_like(z, dtype=torch.bool)
+        fd = flowdirs.d8_core(got, nd)
+        fd_np = fd.cpu().numpy()
+        resolved, mask, _, rots, sdone = flats.resolve_flats_info(got, fd,
+                                                                  nd)
+        if not sdone:
+            raise AssertionError(f"resolve_flats {h}x{w} not converged")
+        want_fd = native.resolve_flats(got64, fd_np)
+        bad = int((resolved.cpu().numpy() != want_fd).sum())
+        want_mask, _ = native.flat_mask_and_labels(got64, fd_np)
+        mask_diff = int((mask.cpu().numpy() != want_mask).sum())
+        log("native", f"resolve_flats {h}x{w}: {bad} of {h * w} codes "
+            f"differ from native; {int((fd_np == 0).sum())} NO_FLOW cells "
+            f"before, {int((want_fd == 0).sum())} after; rotations "
+            f"(towards, away, maxd) {rots}; {mask_diff} flat-mask cells "
+            f"differ from native.flat_mask_and_labels")
+        if bad:
+            raise AssertionError(f"resolve_flats {h}x{w}: {bad} codes "
+                                 "differ from native")
+
+    h, w = NATIVE_GATES[0][0]
     z = tsynth.perlin_dem(h, w, seed=22, device=dev)
     filled, _, done = fill.fill_depressions_info(z, eps=1e-2)
     if not done:
@@ -258,29 +467,14 @@ def phase_main(dev, card, kernels):
                          with_twi=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in kernels:
-        k.launches = 0
-    out = step(z)
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    out, launches = run_path("main", kernels,
+                             ("fill_sweep", "d8", "accum_sweep"),
+                             lambda: step(z))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check_converged(out)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
 
-    ev_secs, host_secs = [], []
-    for _ in range(STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        out = step(z)
-        end.record()
-        torch.cuda.synchronize()
-        host_secs.append(time.perf_counter() - t0)
-        ev_secs.append(start.elapsed_time(end) / 1e3)
-        check_converged(out)
+    ev_secs, host_secs, out = timed_steps(step, z)
+    check_converged(out)
 
     n = MAIN * MAIN
     for key in ("filled", "accum", "slope", "twi"):
@@ -304,12 +498,133 @@ def phase_main(dev, card, kernels):
     return out, launches, z
 
 
+def phase_flats_full(out):
+    """Flat resolution of the main path's ε = 0 output, whose filled lakes
+    are real flats: held bitwise against the native engine at full size,
+    and the resolved codes' accumulation against native's (float64)."""
+    import torch
+    from richdem_tpu_torch import native, resolve_flats
+    from richdem_tpu_torch.ops import accum
+
+    filled, fd = out["filled"], out["flowdirs"]
+    t0 = time.perf_counter()
+    resolved, rotations, done = resolve_flats(filled, fd, return_info=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    inner = (slice(1, -1), slice(1, -1))
+    before = int((fd[inner] == 0).sum())
+    left = int((resolved[inner] == 0).sum())
+    if not done or left:
+        raise AssertionError(f"flats at {MAIN}x{MAIN}: converged {done}, "
+                             f"{left} interior NO_FLOW cells left")
+    fd_np, got = fd.cpu().numpy(), resolved.cpu().numpy()
+    bad = int((got != native.resolve_flats(
+        filled.cpu().numpy().astype(np.float64), fd_np)).sum())
+    if bad:
+        raise AssertionError(f"flats at {MAIN}x{MAIN}: {bad} codes differ "
+                             "from native")
+    # mass, exactly: native's float64 accumulation of the resolved codes
+    want = native.accum_d8(got)
+    n = MAIN * MAIN
+    mass = float(want[got == 0].sum())
+    if mass != n:
+        raise AssertionError(f"resolved codes lose mass: {mass} vs {n}")
+    # float32 holds a cell's accumulation (and every partial sum of it)
+    # exactly below 2**24 cells; above, it rounds
+    acc = accum.d8_accumulation(resolved, max_rotations=256)
+    acc = acc.cpu().numpy().astype(np.float64)
+    small = want < 2**24
+    if not np.array_equal(acc[small], want[small]):
+        raise AssertionError("accumulation of the resolved codes differs "
+                             "from native below 2**24")
+    rel = float(np.max(np.abs(acc[~small] - want[~small]) / want[~small],
+                       initial=0.0))
+    log("flats", f"resolve_flats on the {MAIN}x{MAIN} eps=0 main-path "
+        f"output: {before} interior NO_FLOW cells before, 0 after; codes "
+        f"bitwise equal to native; {rotations} rotations over the three "
+        f"fixpoints; {secs:.3f} s (host, first call); native float64 "
+        f"accumulation of the resolved codes conserves mass exactly "
+        f"({mass:.0f} of {n}); the port's float32 accumulation equals it in "
+        f"every cell "
+        f"below 2**24 and is within {rel:.3e} relative above "
+        f"({int((~small).sum())} cells, largest {want.max():.0f})")
+
+
+def phase_config2(dev, card, kernels):
+    """BASELINE.json config 2 (bench.py BENCH_CONFIG=fill_flats) at full
+    width: auto_epsilon of the device raster, ε-fill, D8, resolve_flats."""
+    import torch
+    from richdem_tpu_torch import auto_epsilon, resolve_flats
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import fill, flowdirs
+
+    z = tsynth.perlin_dem(MAIN, MAIN, seed=0, device=dev)
+    eps = auto_epsilon(z)
+    nd = torch.zeros_like(z, dtype=torch.bool)
+
+    def step(zz):
+        filled, fiters, fdone = fill.fill_depressions_info(zz, eps=eps,
+                                                           max_iters=256)
+        if not fdone:
+            raise AssertionError(f"config 2 fill not converged ({fiters})")
+        fd = flowdirs.d8_core(filled, nd)
+        resolved, rotations, _ = resolve_flats(filled, fd, return_info=True)
+        return filled, fd, resolved, fiters, rotations
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (filled, fd, resolved, fiters, rotations), launches = run_path(
+        "config 2", kernels, ("fill_sweep", "d8", "dist_sweep"),
+        lambda: step(z))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not bool((filled >= z).all()):
+        raise AssertionError("config 2: filled surface below the DEM")
+    noflow = (int((fd == 0).sum()), int((resolved == 0).sum()),
+              int((resolved[1:-1, 1:-1] == 0).sum()))
+    ev_secs, host_secs, last = timed_steps(step, z)
+    if not torch.equal(last[2], resolved):
+        raise AssertionError("config 2 is not deterministic")
+    n = MAIN * MAIN
+    log("config2", f"{MAIN}x{MAIN} Perlin seed 0: auto_epsilon {eps!r}; "
+        f"fill rotations {fiters}, flats rotations {rotations}; NO_FLOW "
+        f"{noflow[0]} before resolve_flats, {noflow[1]} after "
+        f"({noflow[2]} of them off the border); {STEPS} "
+        f"steps after one warm-up: {ev_secs} s (CUDA events), {host_secs} s "
+        f"(host); best {n / min(ev_secs):.4e} cells/s; peak allocated "
+        f"{peak_gib:.3f} GiB (warm-up step, DEM included) on [{card}]; "
+        f"launches {launches}")
+    return launches
+
+
+def phase_terrain(dev, card, z, kernels):
+    """terrain_attribute, the entry point, on the 10240² DEM."""
+    import torch
+    from richdem_tpu_torch import terrain_attribute
+
+    (slope, aspect), launches = run_path(
+        "terrain", kernels, ("terrain",),
+        lambda: (terrain_attribute(z, "slope_radians"),
+                 terrain_attribute(z, "aspect")))
+    if not (bool(torch.isfinite(slope).all())
+            and bool(((slope >= 0) & (slope < np.pi / 2)).all())):
+        raise AssertionError("slope_radians out of [0, pi/2)")
+    if not bool((((aspect >= 0) & (aspect < 360)) | (aspect == -1)).all()):
+        raise AssertionError("aspect out of [0, 360) and not -1")
+    slope_ms = cuda_ms(lambda: terrain_attribute(z, "slope_radians"), 5)
+    aspect_ms = cuda_ms(lambda: terrain_attribute(z, "aspect"), 5)
+    log("terrain", f"terrain_attribute at {MAIN}x{MAIN}: slope_radians "
+        f"{slope_ms:.3f} ms, aspect {aspect_ms:.3f} ms per call on "
+        f"[{card}]; launches {launches}")
+    return launches
+
+
 def phase_timing(dev, card, out, z, err, times):
-    """Each kernel against its plain version at the main path's shapes,
-    bitwise, then one call of each timed (the compared call warms up)."""
+    """Each kernel against its plain version at the paths' shapes, then
+    one call of each timed (the compared call warms up)."""
     import torch
     import torch.nn.functional as F
-    from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps
+    from richdem_tpu_torch.ops import (accum, fill, flats, flowdirs, sweeps,
+                                       terrain)
 
     big = sweeps.BIG
     # fill: a full rotation at 10240² from the main path's start (no
@@ -346,47 +661,88 @@ def phase_timing(dev, card, out, z, err, times):
             ((ak, ap), (accum.accum_sweep(at, ones, fd_t, True),
                         accum.accum_sweep_plain(at, ones, fd_t, True))),
             err, f"{MAIN}x{MAIN}, down and transposed up")
-    log("timing", f"every kernel bitwise to its plain version at "
-        f"{MAIN}x{MAIN} (fill: a rotation, also at {zc.shape[0]}x"
-        f"{zc.shape[1]}; accumulation: down and transposed up)")
 
+    # distance sweeps on the main path's flat lakes, in the three modes
+    # of flat resolution
+    moved = dist_down_and_transposed_up(filled, fd, mask,
+                                        ("towards", "away", "maxd"), err,
+                                        f"{MAIN}x{MAIN}")
+    ff = flats.flat_fields(filled, fd, mask)
+    zed, fl = ff["zed"].contiguous(), ff["flags"].contiguous()
+    wt0 = torch.where(ff["outlet"], 0.0, torch.tensor(big, device=dev))
+    dist_calls = (
+        lambda: flats.dist_sweep(wt0, zed, fl, "towards", 1.0, False, flag),
+        lambda: sweeps.dist_sweep_plain(wt0, zed, fl, "towards", 1.0, False,
+                                        flag))
+
+    # terrain: all 8 attributes of the 10240² DEM
+    terrain_attributes(z, mask, 1.0, 1.0, err, f"{MAIN}x{MAIN}")
+    terrain_calls = (
+        lambda: terrain.terrain_fused(z, mask, 1.0, 1.0, "slope_radians"),
+        lambda: terrain.terrain_plain(z, mask, 1.0, 1.0, "slope_radians"))
+    log("timing", f"every kernel against its plain version at {MAIN}x{MAIN}"
+        f" (fill: a rotation, also at {zc.shape[0]}x{zc.shape[1]}; "
+        f"accumulation: down and transposed up; distance: towards, away "
+        f"and maxd, down and transposed up, cells lowered {moved}; "
+        f"terrain: 8 attributes): bitwise, {'/'.join(ATAN)} within rtol "
+        f"{ATAN_RTOL}")
+
+    n = MAIN * MAIN
     for name, (kern, plain) in (("fill_sweep", fill_calls),
                                 ("d8", d8_calls),
-                                ("accum_sweep", accum_calls)):
+                                ("accum_sweep", accum_calls),
+                                ("dist_sweep", dist_calls),
+                                ("terrain", terrain_calls)):
+        kern()
         ms = cuda_ms(kern, reps=5)
         plain_ms = cuda_ms(plain, reps=1)
-        times[name] = (ms, plain_ms)
+        nbytes, flops = COST[name][0] * n, COST[name][1] * n
+        bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOPS_S \
+            else "operations"
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by)
         log("timing", f"{name} at {MAIN}x{MAIN}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms per call on [{card}]")
+            f"{plain_ms:.3f} ms per call; bound {bound:.4f} ms "
+            f"({bound_by}), {100 * bound / ms:.1f} % of it, on [{card}]")
 
 
 def main():
     card = phase_device()
     import torch
-    from richdem_tpu_torch.ops import accum, fill, flowdirs
+    from richdem_tpu_torch.ops import accum, fill, flats, flowdirs, terrain
 
     dev = torch.device("cuda", 0)
-    kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP]
+    kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP,
+               flats.DIST_SWEEP, terrain.TERRAIN]
     phase_build(kernels)
     err = {k.name: 0.0 for k in kernels}
     phase_kernel_vs_plain(dev, err)
     phase_native(dev)
     out, launches, z = phase_main(dev, card, kernels)
+    phase_flats_full(out)
+    path_launches = {"main": launches,
+                     "config2": phase_config2(dev, card, kernels),
+                     "terrain": phase_terrain(dev, card, z, kernels)}
     times = {}
     phase_timing(dev, card, out, z, err, times)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules
-           if sys.modules[m] is not None):
-        raise AssertionError("JAX was imported")
+    if any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
+           or m == "richdem_tpu"
+           for m in sys.modules if sys.modules[m] is not None):
+        raise AssertionError("JAX or the JAX package was imported")
 
-    replaces = {"fill_sweep": "richdem_tpu/ops/pallas_folded.py:133",
-                "d8": "richdem_tpu/ops/pallas_stencils.py:41",
-                "accum_sweep": "richdem_tpu/ops/pallas_folded.py:329"}
     record = {"kernels": [
         {"name": k.name, "route": "cuda",
          "source": f"richdem_tpu_torch/csrc/{k.name}.cu",
-         "replaces": replaces[k.name], "launches": launches[k.name],
-         "max_abs_err": err[k.name], "ms": times[k.name][0],
-         "plain_ms": times[k.name][1]} for k in kernels]}
+         "replaces": REPLACES[k.name][0],
+         "also_replaces": REPLACES[k.name][1],
+         "path": PATH_OF[k.name],
+         "launches": path_launches[PATH_OF[k.name]][k.name],
+         "max_abs_err": err[k.name], "ms": times[k.name]["ms"],
+         "plain_ms": times[k.name]["plain_ms"],
+         "bound_ms": times[k.name]["bound_ms"],
+         "bound_by": times[k.name]["bound_by"],
+         "library_ms": None} for k in kernels]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

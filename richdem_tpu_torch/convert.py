@@ -21,9 +21,10 @@ _DTYPES = {"filled": np.float32, "flowdirs": np.int8, "accum": np.float32,
            "fill_converged": np.bool_, "accum_converged": np.bool_}
 
 
-def from_numpy(dem, no_data=None, device="cpu"):
-    """``(z, nodata_mask)``: the DEM as float32 on ``device`` and its mask,
-    as ``richdem_tpu.ops.stencil.nodata_like`` builds it (NaN sentinels
+def from_numpy(dem, no_data=None, device="cuda"):
+    """``(z, nodata_mask)``: the DEM as float32 on ``device`` (the card
+    unless another is asked for) and its mask, as
+    ``richdem_tpu.ops.stencil.nodata_like`` builds it (NaN sentinels
     included)."""
     z = torch.from_numpy(np.ascontiguousarray(dem, dtype=np.float32))
     z = z.to(device)

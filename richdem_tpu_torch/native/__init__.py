@@ -1,0 +1,155 @@
+"""ctypes bindings for the single-core C++ engine (``core.cpp``).
+
+The port's own copy of ``richdem_tpu.native``: the exact reference that the
+on-card gates of ``chip_smoke.py`` hold the kernels against (Priority-Flood
+fill, D8 codes, topological-queue accumulation, flat resolution).  It binds
+only the functions the port uses.
+
+``core.cpp`` is built at first use with the reference's g++ flags into
+``richdem_tpu_torch/build/librichdem_native.so`` (rebuilt when the source is
+newer), never beside the source.  There is no fallback: a missing g++ or a
+failed build raises ``RuntimeError``.  Nothing runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+__all__ = ["fill", "d8_flowdirs", "accum_d8", "resolve_flats",
+           "flat_mask_and_labels"]
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "core.cpp")
+_BUILD = os.path.join(os.path.dirname(_DIR), "build")
+_LIB = os.path.join(_BUILD, "librichdem_native.so")
+#: the reference's flags (richdem_tpu/native/__init__.py); no FMA
+#: contraction, so float results stay bitwise with the oracle
+CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
+             "-fPIC", "-shared"]
+_lock = threading.Lock()
+_lib = None
+
+
+def _build():
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, _SRC],
+                              capture_output=True, text=True)
+    except FileNotFoundError as exc:
+        raise RuntimeError("g++ not found: the native engine cannot be "
+                           "built") from exc
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {_SRC} (rc {proc.returncode}):"
+                           f"\n{proc.stderr}{proc.stdout}")
+    os.replace(tmp, _LIB)
+
+
+def _load():
+    """The loaded library, building it first if it is missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if (not os.path.exists(_LIB)
+                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+            _build()
+        lib = ctypes.CDLL(_LIB)
+
+        i64, f64 = ctypes.c_int64, ctypes.c_double
+        p64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        pi8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        lib.rn_fill.argtypes = [p64, i64, i64, f64, ctypes.c_int, f64,
+                                ctypes.c_void_p, ctypes.c_void_p]
+        lib.rn_fill.restype = ctypes.c_int
+        lib.rn_d8_flowdirs.argtypes = [p64, pi8, i64, i64, f64,
+                                       ctypes.c_int, f64, ctypes.c_int]
+        lib.rn_d8_flowdirs.restype = ctypes.c_int
+        lib.rn_accum_d8.argtypes = [pi8, ctypes.c_void_p, p64, i64, i64]
+        lib.rn_accum_d8.restype = ctypes.c_int
+        lib.rn_resolve_flats.argtypes = [p64, pi8, i64, i64, f64,
+                                         ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_void_p]
+        lib.rn_resolve_flats.restype = ctypes.c_int
+        _lib = lib
+        return _lib
+
+
+def _nodata_args(no_data):
+    if no_data is None:
+        return 0.0, 0
+    return float(no_data), 1
+
+
+def fill(dem, no_data=None, eps=0.0):
+    """Priority-Flood fill (plain or epsilon); float64 copy returned."""
+    lib = _load()
+    z = np.array(dem, dtype=np.float64, copy=True, order="C")
+    h, w = z.shape
+    nd, has_nd = _nodata_args(no_data)
+    rc = lib.rn_fill(z, h, w, nd, has_nd, float(eps), None, None)
+    if rc != 0:
+        raise RuntimeError(f"rn_fill failed ({rc})")
+    return z
+
+
+def d8_flowdirs(dem, no_data=None, cellsize=1.0, topology="D8"):
+    """Steepest-descent D8/D4 directions (package tie-break order)."""
+    lib = _load()
+    z = np.ascontiguousarray(dem, dtype=np.float64)
+    h, w = z.shape
+    fd = np.empty((h, w), np.int8)
+    nd, has_nd = _nodata_args(no_data)
+    lib.rn_d8_flowdirs(z, fd, h, w, nd, has_nd, float(cellsize),
+                       1 if topology == "D4" else 0)
+    return fd
+
+
+def accum_d8(flowdirs, weights=None):
+    """Topological-queue D8 accumulation; raises on cycles."""
+    lib = _load()
+    fd = np.ascontiguousarray(flowdirs, dtype=np.int8)
+    h, w = fd.shape
+    acc = np.empty((h, w), np.float64)
+    wptr = None
+    if weights is not None:
+        weights = np.ascontiguousarray(weights, dtype=np.float64)
+        wptr = weights.ctypes.data_as(ctypes.c_void_p)
+    rc = lib.rn_accum_d8(fd, wptr, acc, h, w)
+    if rc != 0:
+        raise ValueError("flow graph has a cycle — fill the DEM first")
+    return acc
+
+
+def _flats_impl(dem, flowdirs, no_data, want_mask):
+    lib = _load()
+    z = np.ascontiguousarray(dem, dtype=np.float64)
+    fd = np.array(flowdirs, dtype=np.int8, copy=True, order="C")
+    h, w = z.shape
+    mask = np.zeros((h, w), np.int32) if want_mask else None
+    labels = np.zeros((h, w), np.int32) if want_mask else None
+    nd, has_nd = _nodata_args(no_data)
+    rc = lib.rn_resolve_flats(
+        z, fd, h, w, nd, has_nd,
+        mask.ctypes.data_as(ctypes.c_void_p) if want_mask else None,
+        labels.ctypes.data_as(ctypes.c_void_p) if want_mask else None)
+    if rc != 0:
+        raise RuntimeError(f"rn_resolve_flats failed ({rc})")
+    return fd, mask, labels
+
+
+def resolve_flats(dem, flowdirs, no_data=None):
+    """Flow directions with flats drained (Barnes, Lehman & Mulla 2014)."""
+    fd, _, _ = _flats_impl(dem, flowdirs, no_data, want_mask=False)
+    return fd
+
+
+def flat_mask_and_labels(dem, flowdirs, no_data=None):
+    """(flat_mask, labels) int32 rasters."""
+    _, mask, labels = _flats_impl(dem, flowdirs, no_data, want_mask=True)
+    return mask, labels

@@ -1,2 +1,3 @@
 """Device ops of the port: plain PyTorch, and wrappers of the CUDA kernels
-(fill sweep, D8 stencil, accumulation sweep) with their plain versions."""
+(fill sweep, D8 stencil, accumulation sweep, distance sweep, terrain
+stencil) with their plain versions."""

@@ -19,9 +19,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
-from richdem_tpu_torch._shared import topology
 from richdem_tpu_torch.ops.fill import _require_converged
+from richdem_tpu_torch.ops.stencil import as_tensor
 from richdem_tpu_torch.ops.sweeps import seam_columns
 
 __all__ = ["ACCUM_SWEEP", "PERM_TRANSPOSE", "accum_sweep",
@@ -155,10 +156,17 @@ def d8_accumulation_info(flowdirs, weights, max_rotations=64,
 
 
 def d8_accumulation(flowdirs, weights=None, no_data_mask=None,
-                    max_rotations=64):
+                    max_rotations=64, device="cuda"):
     """Exact D8 accumulation; raises if ``max_rotations`` rotations do not
-    reach the fixpoint.  Zero weight and zero output at nodata."""
-    fd = flowdirs
+    reach the fixpoint.  Zero weight and zero output at nodata.
+
+    ``flowdirs``: a tensor (the work runs where it lives) or an array
+    (moved to ``device``, as are array weights and masks)."""
+    fd = as_tensor(flowdirs, device)
+    if weights is not None:
+        weights = as_tensor(weights, fd.device)
+    if no_data_mask is not None:
+        no_data_mask = as_tensor(no_data_mask, fd.device)
     if weights is None:
         weights = torch.ones(fd.shape, dtype=torch.float32, device=fd.device)
     weights = weights.to(torch.float32)

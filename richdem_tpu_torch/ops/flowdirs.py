@@ -16,9 +16,9 @@ import ctypes
 import numpy as np
 import torch
 
+from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import Kernel, stream_handle
-from richdem_tpu_torch._shared import topology
-from richdem_tpu_torch.ops.stencil import neighbor, nodata_like
+from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
 
 __all__ = ["D8", "d8_plain", "d8_core", "d8_flowdirs"]
 
@@ -91,7 +91,10 @@ def d8_core(z, nodata_mask, cellsize=1.0, topology_name="D8"):
     return out
 
 
-def d8_flowdirs(dem, no_data=None, topology_name="D8", cellsize=1.0):
-    """Steepest-descent single flow directions of a DEM tensor."""
+def d8_flowdirs(dem, no_data=None, topology_name="D8", cellsize=1.0,
+                device="cuda"):
+    """Steepest-descent single flow directions of a DEM: a tensor (the
+    work runs where it lives) or an array (moved to ``device``)."""
+    dem = as_tensor(dem, device)
     return d8_core(dem.to(torch.float32), nodata_like(dem, no_data),
                    cellsize, topology_name)

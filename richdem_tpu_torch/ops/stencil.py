@@ -9,12 +9,22 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from richdem_tpu_torch._shared import topology
+from richdem_tpu_torch import topology
 
-__all__ = ["neighbor", "nodata_like"]
+__all__ = ["as_tensor", "neighbor", "nodata_like"]
+
+
+def as_tensor(x, device="cuda") -> torch.Tensor:
+    """``x`` itself if it is a tensor (work runs where a tensor lives),
+    else ``x`` as a tensor on ``device``.  Entry points default to the
+    card; asking for ``"cuda"`` without one raises, as torch does."""
+    if torch.is_tensor(x):
+        return x
+    return torch.as_tensor(np.asarray(x), device=device)
 
 
 def neighbor(x: torch.Tensor, d: int, fill) -> torch.Tensor:

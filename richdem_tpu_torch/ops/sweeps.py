@@ -1,5 +1,5 @@
-"""Directional Gauss–Seidel fill sweeps: the plain version and the
-rotation/fixpoint loop.
+"""Directional Gauss–Seidel sweeps (fill and masked distances): the plain
+versions and the rotation/fixpoint loops.
 
 Counterpart of :mod:`richdem_tpu.ops.sweeps` (``BIG``, the
 ``(w, iters, converged)`` while-loop contract) and of
@@ -14,6 +14,18 @@ relaxes the three neighbours of the row before; a rotation is down, up,
 transposed-down and transposed-up, so it covers all 8 directions.  The
 iteration is monotone, so any sweep order (and any staleness at tile seams)
 reaches the same fixpoint, bit for bit.
+
+The masked unit-cost distances of flat resolution are the same kind of
+fixpoint with no floor (counterpart of ``pallas_sweeps._allowed``,
+``_dist_rotation``, ``dist_fixpoint_pallas`` and of
+``pallas_scan.dist_fixpoint_scan``):
+
+    D(c) = min( D(c), min_{n admissible} D(n) + step )
+
+where an edge n → c is admissible when both cells are data at one
+elevation and their flag bytes pass the mode's test (:func:`allowed`).
+Distances are small integers, so every engine and every sweep order reaches
+the same answer exactly.
 """
 
 from __future__ import annotations
@@ -23,10 +35,24 @@ import torch.nn.functional as F
 
 from richdem_tpu_torch._build import SWEEP_TILE
 
-__all__ = ["BIG", "fill_sweep_plain", "fill_fixpoint_core", "seam_columns"]
+__all__ = ["BIG", "ZBIG", "DIST_MODES", "F_DATA", "F_NOFLOW", "F_INFLAT",
+           "fill_sweep_plain", "fill_fixpoint_core", "seam_columns",
+           "allowed", "dist_sweep_plain", "dist_context",
+           "dist_fixpoint_core"]
 
 #: Finite stand-in for infinity (fits comfortably in float32).
 BIG = 1.0e30
+
+#: Elevation of nodata and off-grid cells in the distance sweeps; an
+#: elevation below 2.9e37 is a data cell's.
+ZBIG = 3.0e37
+_ZVALID = 2.9e37
+
+#: Flag bits of a cell (int8): data, NO_FLOW, member of a flat.
+F_DATA, F_NOFLOW, F_INFLAT = 1, 2, 4
+
+#: Distance modes, in the order of the kernel's ``mode`` argument.
+DIST_MODES = ("member", "towards", "away", "maxd")
 
 
 def seam_columns(width: int, tile: int, device):
@@ -74,27 +100,138 @@ def fill_sweep_plain(w_in, floor, eps, eps_diag, reverse, flag,
     return out
 
 
-def fill_fixpoint_core(w0, floor, eps, max_iters, sweep):
+def fill_fixpoint_core(w0, floor, eps, max_iters, sweep, eps_diag=None):
     """Iterate rotations of ``sweep`` (down, up, transposed-down,
     transposed-up) until one changes nothing; returns
     ``(w, iters, converged)``.
 
     ``sweep(w_in, floor, eps, eps_diag, reverse, flag)`` is the kernel
-    wrapper or its plain version; every edge costs ``eps``.  The loop reads
-    the change flag once per rotation (one host sync); ``max_iters`` bounds
-    the loop, never the result — ``converged`` says whether the fixpoint
-    was reached."""
+    wrapper or its plain version.  Straight edges cost ``eps``, diagonal
+    edges ``eps_diag`` (``eps`` when None).  The loop reads the change flag
+    once per rotation (one host sync); ``max_iters`` bounds the loop, never
+    the result — ``converged`` says whether the fixpoint was reached."""
+    eps_diag = eps if eps_diag is None else eps_diag
     floor_t = floor.t().contiguous()
     flag = torch.zeros(1, dtype=torch.int32, device=w0.device)
     w = w0.contiguous()
     iters, converged = 0, False
     while iters < max_iters:
         flag.zero_()
-        w = sweep(w, floor, eps, eps, False, flag)
-        w = sweep(w, floor, eps, eps, True, flag)
+        w = sweep(w, floor, eps, eps_diag, False, flag)
+        w = sweep(w, floor, eps, eps_diag, True, flag)
         wt = w.t().contiguous()
-        wt = sweep(wt, floor_t, eps, eps, False, flag)
-        wt = sweep(wt, floor_t, eps, eps, True, flag)
+        wt = sweep(wt, floor_t, eps, eps_diag, False, flag)
+        wt = sweep(wt, floor_t, eps, eps_diag, True, flag)
+        w = wt.t().contiguous()
+        iters += 1
+        if int(flag.item()) == 0:
+            converged = True
+            break
+    return w, iters, converged
+
+
+def allowed(mode, z, zn, s, sn):
+    """Admissibility of the edge n → c per mode (``z``/``s``: the cell's
+    elevation and flags; ``zn``/``sn``: the neighbour's).  The predicates
+    of ``richdem_tpu.ops.pallas_sweeps._allowed``:
+
+    * member  — both data;
+    * towards — c is NO_FLOW and in a flat, n in a flat;
+    * away    — both NO_FLOW and in a flat;
+    * maxd    — both in a flat;
+
+    always at one data elevation."""
+    z_eq = (z == zn) & (z < _ZVALID) & (zn < _ZVALID)
+    if mode == "member":
+        return z_eq & ((s & F_DATA) > 0) & ((sn & F_DATA) > 0)
+    nf_in = F_NOFLOW | F_INFLAT
+    if mode == "towards":
+        return z_eq & ((s & nf_in) == nf_in) & ((sn & F_INFLAT) > 0)
+    if mode == "away":
+        return z_eq & ((s & nf_in) == nf_in) & ((sn & nf_in) == nf_in)
+    if mode == "maxd":
+        return z_eq & ((s & F_INFLAT) > 0) & ((sn & F_INFLAT) > 0)
+    raise ValueError(f"unknown distance mode {mode!r}; expected one of "
+                     f"{DIST_MODES}")
+
+
+def dist_sweep_plain(w_in, z, flags, mode, step, reverse, flag,
+                     tile=SWEEP_TILE):
+    """Plain version of the distance-sweep kernel (``csrc/dist_sweep.cu``):
+    a loop over rows in sweep order, vectorised across columns.  Each cell
+    relaxes the three cells of the row before (N, NW, NE in sweep order)
+    over admissible edges.  Returns the swept raster; ORs 1 into the int32
+    ``flag`` if any cell changed.
+
+    ``z``: float32 elevations with nodata at :data:`ZBIG`; ``flags``: int8
+    flag bytes.  Off-grid cells are ``w = BIG``, ``z = ZBIG``, flags 0.
+    ``tile``: width of the kernel's column tiles; across a tile edge the row
+    before is read at its sweep-start values, as the kernel reads it, so
+    one sweep is bitwise the kernel's."""
+    h, wd = w_in.shape
+    dev = w_in.device
+    out = torch.empty_like(w_in)
+    step_t = torch.tensor(step, dtype=torch.float32, device=dev)
+    big = torch.tensor(BIG, dtype=torch.float32, device=dev)
+    lseam, rseam = seam_columns(wd, tile, dev)
+    rows = range(h - 1, -1, -1) if reverse else range(h)
+    pw = torch.full((wd + 2,), BIG, dtype=torch.float32, device=dev)
+    pz = torch.full((wd + 2,), ZBIG, dtype=torch.float32, device=dev)
+    ps = torch.zeros(wd + 2, dtype=flags.dtype, device=dev)
+    prev_old = None
+    for r in rows:
+        zr, sr = z[r], flags[r]
+        left, right = pw[:-2], pw[2:]
+        if prev_old is not None and lseam.numel():
+            left, right = left.clone(), right.clone()
+            left[lseam] = prev_old[lseam - 1]
+            right[rseam] = prev_old[rseam + 1]
+        cand = torch.where(allowed(mode, zr, pz[1:-1], sr, ps[1:-1]),
+                           pw[1:-1] + step_t, big)
+        cand = torch.minimum(cand, torch.where(
+            allowed(mode, zr, pz[:-2], sr, ps[:-2]), left + step_t, big))
+        cand = torch.minimum(cand, torch.where(
+            allowed(mode, zr, pz[2:], sr, ps[2:]), right + step_t, big))
+        new = torch.minimum(w_in[r], cand)
+        out[r] = new
+        pw = F.pad(new, (1, 1), value=BIG)
+        pz = F.pad(zr, (1, 1), value=ZBIG)
+        ps = F.pad(sr, (1, 1), value=0)
+        prev_old = w_in[r]
+    flag.bitwise_or_((out != w_in).any().to(torch.int32))
+    return out
+
+
+def dist_context(zed, flags):
+    """``(z, flags, z.T, flags.T)``, contiguous: the rasters every distance
+    fixpoint of one flat resolution reads, transposed once (as
+    ``pallas_sweeps._dist_context`` prepares them once)."""
+    z = zed.to(torch.float32).contiguous()
+    s = flags.to(torch.int8).contiguous()
+    return z, s, z.t().contiguous(), s.t().contiguous()
+
+
+def dist_fixpoint_core(w0, ctx, mode, step, max_iters, sweep):
+    """Iterate rotations of ``sweep`` (down, up, transposed-down,
+    transposed-up) from ``w0`` until one changes nothing; returns
+    ``(w, iters, converged)``.
+
+    ``ctx``: :func:`dist_context`.  ``sweep(w_in, z, flags, mode, step,
+    reverse, flag)`` is the kernel wrapper or its plain version.  The
+    in-row E/W chains are left to the transposed sweeps, as
+    ``pallas_sweeps._dist_rotation`` leaves them.  The change flag is read
+    once per rotation; ``max_iters`` bounds the loop, never the result."""
+    z, s, z_t, s_t = ctx
+    flag = torch.zeros(1, dtype=torch.int32, device=w0.device)
+    w = w0.to(torch.float32).contiguous()
+    iters, converged = 0, False
+    while iters < max_iters:
+        flag.zero_()
+        w = sweep(w, z, s, mode, step, False, flag)
+        w = sweep(w, z, s, mode, step, True, flag)
+        wt = w.t().contiguous()
+        wt = sweep(wt, z_t, s_t, mode, step, False, flag)
+        wt = sweep(wt, z_t, s_t, mode, step, True, flag)
         w = wt.t().contiguous()
         iters += 1
         if int(flag.item()) == 0:

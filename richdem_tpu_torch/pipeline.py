@@ -17,7 +17,7 @@ from richdem_tpu_torch.methods import twi as _twi
 from richdem_tpu_torch.ops.accum import d8_accumulation_info
 from richdem_tpu_torch.ops.fill import fill_depressions_info
 from richdem_tpu_torch.ops.flowdirs import d8_core
-from richdem_tpu_torch.ops.stencil import nodata_like
+from richdem_tpu_torch.ops.stencil import as_tensor, nodata_like
 from richdem_tpu_torch.ops.terrain import terrain_core
 
 __all__ = ["make_pipeline", "terrain_pipeline", "check_converged"]
@@ -85,10 +85,12 @@ def check_converged(out):
 
 
 def terrain_pipeline(dem, eps=1e-3, cellsize=1.0, fill_iters=256,
-                     with_twi=False, no_data=None, max_rotations=None):
-    """One-shot :func:`make_pipeline` on ``dem`` (a tensor, on any
-    device, or an array); raises on non-convergence."""
-    z = torch.as_tensor(dem)
+                     with_twi=False, no_data=None, max_rotations=None,
+                     device="cuda"):
+    """One-shot :func:`make_pipeline` on ``dem``, a tensor (the pipeline
+    runs where it lives) or an array (moved to ``device``); raises on
+    non-convergence."""
+    z = as_tensor(dem, device)
     out = make_pipeline(z.shape, eps, cellsize, fill_iters, with_twi,
                         no_data=no_data, max_rotations=max_rotations)(z)
     return check_converged(out)

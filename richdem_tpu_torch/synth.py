@@ -5,9 +5,10 @@ Counterpart of ``richdem_tpu.synth_jax.perlin_dem`` /
 float32 on ``device`` so that a 10240² raster is never built on the host.
 The per-octave lattices are tiny; they come from
 ``numpy.random.default_rng(seed)`` in the order ``richdem_tpu.synth``
-draws them, so the field equals the numpy generator's (float64) up to
-float32 rounding.  ``jax.random``'s bits cannot be reproduced here, so the
-field is not ``synth_jax``'s.
+draws them, so the field equals the numpy generator's
+(:mod:`richdem_tpu_torch.synth_np`, float64) up to float32 rounding.
+``jax.random``'s bits cannot be reproduced here, so the field is not
+``synth_jax``'s.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ __all__ = ["perlin_dem"]
 
 def perlin_dem(height: int, width: int = None, seed: int = 0,
                octaves: int = 5, base_period: int = None,
-               amplitude: float = 100.0, device="cpu") -> torch.Tensor:
+               amplitude: float = 100.0, device="cuda") -> torch.Tensor:
     """Fractal value-noise terrain, float32 ``(height, width)`` on
-    ``device``."""
+    ``device`` (the card unless another is asked for)."""
     width = height if width is None else width
     base_period = (max(height, width) // 4 if base_period is None
                    else base_period)

@@ -75,7 +75,7 @@ def test_accum_float_weights_and_nodata():
     fd = np.asarray(oracle.d8_flowdirs(filled, no_data=nd), np.int8)
     w = np.random.default_rng(3).uniform(0.1, 2.0, fd.shape).astype(
         np.float32)
-    _, m = convert.from_numpy(dem, nd)
+    _, m = convert.from_numpy(dem, nd, device="cpu")
     got = tacc.d8_accumulation(torch.from_numpy(fd), torch.from_numpy(w),
                                no_data_mask=m)
     wj = np.where(m.numpy(), 0.0, w).astype(np.float32)

@@ -1,19 +1,21 @@
-"""The three CUDA kernels ↔ their plain versions, on a CUDA card.
+"""The five CUDA kernels ↔ their plain versions, on a CUDA card.
 
 Marked ``gpu``: the kernels have no CPU mode, so without a card and
 ``nvcc`` these tests skip.  On a card, run
 ``python -m pytest tests/test_torch_cuda.py -q``.  Widths above the
 1024-column tile put seams inside the grid; a single sweep must still be
-bitwise the plain version's (which reads seams the same way).
+bitwise the plain version's (which reads seams the same way).  The terrain
+kernel's atan attributes are held to rtol 1e-6 (the kernel and torch may
+call different atan implementations), the others bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from richdem_tpu_torch import _build
+from richdem_tpu_torch import _build, synth_np
 from richdem_tpu_torch import synth as tsynth
-from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps
+from richdem_tpu_torch.ops import accum, fill, flats, flowdirs, sweeps, terrain
 
 torch.set_num_threads(1)
 
@@ -93,3 +95,81 @@ def test_accum_sweep_kernel_matches_plain(dev, shape):
     ref, _, done = accum.d8_accumulation_info(fd, ones, 64,
                                               sweep=accum.accum_sweep_plain)
     assert done and torch.equal(got, ref)
+
+
+def _flat_case(shape, dev):
+    """An ε = 0 filled depression DEM (flat lakes), its D8 codes and the
+    flat fields flat resolution builds from them."""
+    dem = synth_np.depression_dem(*shape, seed=4, n_pits=6)
+    z = torch.from_numpy(dem).to(dev)
+    mask = torch.zeros_like(z, dtype=torch.bool)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=0.0)
+    assert done
+    fd = flowdirs.d8_core(filled, mask)
+    return filled, fd, mask, flats.flat_fields(filled, fd, mask)
+
+
+def _seeds(ff):
+    """A start for each mode; ``maxd`` gets -D-like values that vary."""
+    zed = ff["zed"]
+    big = torch.tensor(sweeps.BIG, device=zed.device)
+    ramp = -(torch.arange(zed.numel(), device=zed.device) % 5).view(
+        zed.shape).to(torch.float32)
+    return {"member": (torch.where(ff["noflow"], 0.0, big), 1.0),
+            "towards": (torch.where(ff["outlet"], 0.0, big), 1.0),
+            "away": (torch.where(ff["high_seed"], 1.0, big), 1.0),
+            "maxd": (torch.where(ff["in_flat"], ramp, big), 0.0)}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", sweeps.DIST_MODES)
+def test_dist_sweep_kernel_matches_plain(dev, shape, mode):
+    _, _, _, ff = _flat_case(shape, dev)
+    z, s, z_t, s_t = sweeps.dist_context(ff["zed"], ff["flags"])
+    w, step = _seeds(ff)[mode]
+    for transposed in (False, True):
+        zz, ss = (z_t, s_t) if transposed else (z, s)
+        w = w.t().contiguous() if transposed else w.contiguous()
+        for reverse in (False, True):
+            fk = torch.zeros(1, dtype=torch.int32, device=dev)
+            fp = torch.zeros(1, dtype=torch.int32, device=dev)
+            before = flats.DIST_SWEEP.launches
+            wk = flats.dist_sweep(w, zz, ss, mode, step, reverse, fk)
+            wp = sweeps.dist_sweep_plain(w, zz, ss, mode, step, reverse,
+                                         fp)
+            torch.cuda.synchronize()
+            assert flats.DIST_SWEEP.launches == before + 1
+            assert torch.equal(wk, wp) and torch.equal(fk, fp)
+            w = wk
+        if transposed:
+            w = w.t().contiguous()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_resolve_flats_kernel_matches_plain(dev, shape):
+    filled, fd, mask, _ = _flat_case(shape, dev)
+    got = flats.resolve_flats_info(filled, fd, mask)
+    ref = flats.resolve_flats_info(filled, fd, mask,
+                                   sweep=sweeps.dist_sweep_plain)
+    assert got[4] and ref[4]
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.equal(g, r)
+    assert int((got[1] > 0).sum()) > 0  # real flats were resolved
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("attrib", terrain.TERRAIN_ATTRIBUTES)
+def test_terrain_kernel_matches_plain(dev, shape, attrib):
+    z, mask = _dem(shape, dev, seed=5)
+    before = terrain.TERRAIN.launches
+    got = terrain.terrain_fused(z, mask, 2.0, 3.0, attrib)
+    torch.cuda.synchronize()
+    assert terrain.TERRAIN.launches == before + 1
+    ref = terrain.terrain_plain(z, mask, 2.0, 3.0, attrib)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert bool(torch.isnan(got[mask]).all())
+    ok = ~torch.isnan(ref)
+    if attrib in ("slope_radians", "slope_degrees", "aspect"):
+        torch.testing.assert_close(got[ok], ref[ok], rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got[ok], ref[ok])

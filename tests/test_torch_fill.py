@@ -19,6 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from richdem_tpu import synth
 from richdem_tpu.ops import pallas_folded, pallas_sweeps
+from richdem_tpu.ops.fill import auto_epsilon as jax_auto_epsilon
 from richdem_tpu.ops.fill import fill_depressions_info as jax_fill_info
 from richdem_tpu_torch import convert
 from richdem_tpu_torch.ops import fill as tfill
@@ -57,7 +58,7 @@ def _dem(h, w, seed, holes=True):
 
 
 def _port(dem, eps, **kw):
-    z, m = convert.from_numpy(dem, ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
     filled, iters, done = tfill.fill_depressions_info(z, m, eps=eps, **kw)
     return filled.numpy(), iters, done
 
@@ -100,7 +101,7 @@ def test_fill_multigrid_bitwise_vs_pallas_folded():
 @pytest.mark.parametrize("hw", [(64, 80), (45, 120)])
 def test_fill_vs_xla_engine(hw):
     dem = _dem(*hw, seed=7)
-    z, m = convert.from_numpy(dem, ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
     for eps in (0.0, 1e-3):
         got, _, done = tfill.fill_depressions_info(z, m, eps=eps)
         want, _, wdone = jax_fill_info(jnp.asarray(dem),
@@ -117,7 +118,7 @@ def test_fill_tile_seams_reach_the_same_fixpoint():
     """Narrow column tiles (stale seam reads, as in the kernel) change the
     path to the fixpoint, not the fixpoint."""
     dem = _dem(50, 70, seed=9)
-    z, m = convert.from_numpy(dem, ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
     neg = torch.tensor(-tsweeps.BIG)
     floor = torch.where(m, neg, z)
     w0 = torch.where(m, neg, torch.full_like(z, tsweeps.BIG))
@@ -131,7 +132,7 @@ def test_fill_tile_seams_reach_the_same_fixpoint():
 
 def test_fill_nodata_w0_and_iteration_cap():
     dem = _dem(48, 48, seed=13)
-    z, m = convert.from_numpy(dem, ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
     filled, iters, done = tfill.fill_depressions_info(z, m)
     assert done and iters >= 1
     np.testing.assert_array_equal(filled[m].numpy(), dem[m.numpy()])
@@ -144,3 +145,51 @@ def test_fill_nodata_w0_and_iteration_cap():
     assert iters1 == 1 and not done1
     with pytest.raises(RuntimeError):
         tfill.fill_depressions(z, no_data=ND, max_iters=1)
+
+
+@pytest.mark.parametrize("hw,no_data", [((40, 57), ND), ((33, 20), None)])
+def test_auto_epsilon_is_the_reference_float(hw, no_data):
+    """Device and host paths of both sides give one float (the nodata
+    sentinel counts towards the scale, as in the reference)."""
+    dem = _dem(*hw, seed=2, holes=no_data is not None)
+    want = jax_auto_epsilon(jnp.asarray(dem))
+    assert want == jax_auto_epsilon(dem)
+    got = tfill.auto_epsilon(torch.from_numpy(dem))
+    assert type(got) is float and got == want
+    assert tfill.auto_epsilon(dem) == want
+
+
+def test_fill_epsilon_bitwise_vs_pallas():
+    dem = _dem(40, 57, seed=3)
+    eps = jax_auto_epsilon(dem)
+    got = tfill.fill_epsilon(dem, no_data=ND, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    want, _, wdone = pallas_folded.fill_fixpoint_pallas(
+        jnp.asarray(dem), jnp.asarray(dem == ND), eps=eps)
+    assert bool(wdone)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() >= dem).all()
+
+
+@pytest.mark.parametrize("hw", [(40, 57), (72, 50)])
+def test_scale_diagonal_bitwise_vs_pallas(hw):
+    """Diagonal edges cost f32(ε·√2): bitwise against the folded kernel
+    given that ``eps_diag``, allclose against the XLA engine (whose scan
+    regroups ε sums)."""
+    dem = _dem(*hw, seed=5)
+    eps = 1e-3
+    got, _, done = _port(dem, eps, scale_diagonal=True)
+    want, _, wdone = pallas_folded.fill_fixpoint_folded(
+        jnp.asarray(dem), jnp.asarray(dem == ND), eps=eps,
+        eps_diag=eps * float(np.sqrt(2.0)), **FOLD)
+    assert done and bool(wdone)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    xla, _, xdone = jax_fill_info(jnp.asarray(dem), jnp.asarray(dem == ND),
+                                  eps=eps, scale_diagonal=True)
+    assert bool(xdone)
+    np.testing.assert_allclose(got, np.asarray(xla), rtol=0, atol=1e-4)
+    plain, _, _ = _port(dem, eps)
+    assert not np.array_equal(got, plain)  # the diagonal cost mattered
+    filled = tfill.fill_depressions(dem, no_data=ND, eps=eps,
+                                    scale_diagonal=True, device="cpu")
+    np.testing.assert_array_equal(filled.numpy(), got)

@@ -31,7 +31,7 @@ ND = -9999.0
 def test_d8_bitwise_vs_d8_core(hw, cellsize, topology):
     dem = synth.with_nodata_holes(
         synth.perlin_dem(*hw, seed=2, dtype=np.float32), no_data=ND, seed=4)
-    z, m = convert.from_numpy(dem, ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
     got = tflow.d8_flowdirs(torch.from_numpy(dem), no_data=ND,
                             topology_name=topology,
                             cellsize=cellsize).numpy()
@@ -48,7 +48,7 @@ def test_d8_flat_and_tied_neighbours():
     dem = np.zeros((5, 6), np.float32)
     dem[2, 2] = 1.0  # four straight and four diagonal ties
     dem[4, :] = -1.0
-    z, m = convert.from_numpy(dem, None)
+    z, m = convert.from_numpy(dem, None, device="cpu")
     got = tflow.d8_core(z, m).numpy()
     want = np.asarray(jax_d8_core(jnp.asarray(dem), jnp.asarray(m.numpy()),
                                   jnp.asarray(1.0, jnp.float32)))
@@ -61,7 +61,7 @@ def test_d8_bitwise_vs_pallas_kernel_integer_dem(d4):
     rng = np.random.default_rng(17)
     dem = rng.integers(0, 40, size=(48, 70)).astype(np.float32)
     dem[10:14, 20:26] = ND
-    z, m = convert.from_numpy(dem, ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
     got = tflow.d8_core(z, m, 1.0, "D4" if d4 else "D8").numpy()
     if jax.default_backend() != "tpu":
         with pltpu.force_tpu_interpret_mode():
@@ -75,6 +75,6 @@ def test_d8_bitwise_vs_pallas_kernel_integer_dem(d4):
 
 
 def test_d8_rejects_unknown_topology():
-    z, m = convert.from_numpy(np.zeros((4, 4), np.float32))
+    z, m = convert.from_numpy(np.zeros((4, 4), np.float32), device="cpu")
     with pytest.raises(ValueError):
         tflow.d8_core(z, m, 1.0, "D6")

@@ -1,54 +1,137 @@
-"""The port runs without JAX and never falls back from a missing kernel.
+"""The port stands alone: no JAX, nothing of ``richdem_tpu``, no fallback
+from a missing kernel, and the card by default.
 
-The machine with the card has no JAX, so ``import richdem_tpu_torch`` and
-a pipeline run must work with ``jax`` unimportable.  Without ``nvcc`` the
-kernels cannot be built: asking for one raises instead of quietly running
-the plain version.
+The machine with the card has no JAX, so the port imports nothing of the
+JAX package, not even a module there that is JAX-free: it carries its own
+copies.  The test copies the package to a directory with no
+``richdem_tpu/`` beside it and drives it there with ``jax`` unimportable.
+Without ``nvcc`` the kernels cannot be built: asking for one raises instead
+of quietly running the plain version.  Entry points given an array or
+creating data run on the card unless asked for another device.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from richdem_tpu_torch import _build
-from richdem_tpu_torch.ops import accum, fill, flowdirs
+import richdem_tpu_torch as rt
+from richdem_tpu_torch import _build, convert
+from richdem_tpu_torch import synth as tsynth
+from richdem_tpu_torch.ops import accum, fill, flats, flowdirs, terrain
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNELS = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP, flats.DIST_SWEEP,
+           terrain.TERRAIN]
 
-_NO_JAX = """
-import sys
+_ALONE = """
+import os, shutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 import numpy as np, torch
 torch.set_num_threads(1)
 import richdem_tpu_torch as rt
-from richdem_tpu_torch import synth
-z = synth.perlin_dem(64, 64, seed=0)
+from richdem_tpu_torch import native, synth, synth_np
+from richdem_tpu_torch.ops.flowdirs import d8_flowdirs
+z = synth.perlin_dem(64, 64, seed=0, device="cpu")
 out = rt.check_converged(rt.make_pipeline(z.shape, with_twi=True)(z))
 assert float(out["accum"].sum()) > 0
-assert not any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
-               or m == "richdem_tpu" for m in sys.modules
-               if sys.modules[m] is not None)
+dem = synth_np.depression_dem(48, seed=3)
+filled = rt.fill_epsilon(dem, eps=0.0, device="cpu")
+fd = rt.resolve_flats(filled, d8_flowdirs(filled))
+assert fd.device.type == "cpu" and int((fd[1:-1, 1:-1] == 0).sum()) == 0
+slope = rt.terrain_attribute(dem, "slope_radians", device="cpu")
+assert bool(torch.isfinite(slope).all())
+if shutil.which("g++"):
+    want = native.fill(dem.astype(np.float64))
+    assert np.array_equal(want, filled.numpy().astype(np.float64))
+    assert os.path.exists(native._LIB)
+    print("native ok")
+reference = os.path.join(sys.argv[1], "richdem_tpu") + os.sep
+loaded = [m for m, mod in list(sys.modules.items()) if mod is not None]
+assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
+assert not any(m == "richdem_tpu" or m.startswith("richdem_tpu.")
+               for m in loaded)
+files = [getattr(sys.modules[m], "__file__", None) or "" for m in loaded]
+assert not any(os.path.abspath(f).startswith(reference) for f in files)
 print("ok")
 """
 
 
-def test_port_imports_and_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=120)
+def test_port_runs_alone_without_jax(tmp_path):
+    """A copy of the package with no ``richdem_tpu/`` beside it: import, the
+    pipeline, flat resolution, a terrain attribute and (where g++ exists)
+    the port's own native engine, which builds into the copy."""
+    shutil.copytree(os.path.join(REPO, "richdem_tpu_torch"),
+                    tmp_path / "richdem_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", _ALONE, REPO],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("ok")
+    lines = proc.stdout.split()
+    assert lines[-1] == "ok"
+    if shutil.which("g++"):
+        assert "native" in lines
+        assert (tmp_path / "richdem_tpu_torch" / "build"
+                / "librichdem_native.so").exists()
 
 
-@pytest.mark.parametrize("kernel", [fill.FILL_SWEEP, flowdirs.D8,
-                                    accum.ACCUM_SWEEP],
-                         ids=lambda k: k.name)
+def test_no_port_file_names_the_reference_package():
+    """No source of the port (or the smoke script) imports, execs or
+    builds anything of ``richdem_tpu``."""
+    pkg = os.path.join(REPO, "richdem_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(pkg):
+        paths += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cu", ".cpp"))]
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            for ln, line in enumerate(fh, 1):
+                code = line.split("#")[0]
+                assert "import richdem_tpu " not in code + " ", (path, ln)
+                assert "from richdem_tpu " not in code, (path, ln)
+                assert "from richdem_tpu." not in code, (path, ln)
+                assert "import jax" not in code, (path, ln)
+
+
+def _entry_points():
+    dem = np.random.default_rng(0).random((12, 14)).astype(np.float32)
+    fd = np.zeros(dem.shape, np.int8)
+    return {
+        "from_numpy": lambda: convert.from_numpy(dem)[0],
+        "perlin_dem": lambda: tsynth.perlin_dem(12, 14),
+        "terrain_pipeline": lambda: rt.terrain_pipeline(dem)["accum"],
+        "fill_epsilon": lambda: rt.fill_epsilon(dem),
+        "fill_depressions": lambda: fill.fill_depressions(dem),
+        "d8_flowdirs": lambda: flowdirs.d8_flowdirs(dem),
+        "d8_accumulation": lambda: accum.d8_accumulation(fd),
+        "resolve_flats": lambda: rt.resolve_flats(dem, fd),
+        "flat_mask_and_labels_device":
+            lambda: rt.flat_mask_and_labels_device(dem, fd)[0],
+        "terrain_attribute": lambda: rt.terrain_attribute(dem, "aspect"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """Given an array, or making data, an entry point asks for the card:
+    without one, torch refuses; with one, the result lies on it."""
+    call = _entry_points()[name]
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+    else:
+        assert call().is_cuda
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)
 def test_kernel_without_nvcc_raises(kernel, monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -62,13 +145,13 @@ def test_kernel_without_nvcc_raises(kernel, monkeypatch, tmp_path):
 
 def test_cpu_tensors_take_the_plain_version():
     """The kernels' wrappers never reach a kernel for a CPU tensor."""
-    before = [k.launches for k in (fill.FILL_SWEEP, flowdirs.D8,
-                                   accum.ACCUM_SWEEP)]
+    before = [k.launches for k in KERNELS]
     z = torch.rand(20, 24)
     m = torch.zeros(20, 24, dtype=torch.bool)
     f, _, _ = fill.fill_depressions_info(z, m)
     fd = flowdirs.d8_core(f, m)
     accum.d8_accumulation(fd)
-    after = [k.launches for k in (fill.FILL_SWEEP, flowdirs.D8,
-                                  accum.ACCUM_SWEEP)]
+    flats.resolve_flats(torch.round(z * 4) / 4, fd)
+    terrain.terrain_attribute(z, "curvature")
+    after = [k.launches for k in KERNELS]
     assert after == before

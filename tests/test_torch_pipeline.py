@@ -34,7 +34,7 @@ def _dem(h, w, seed):
 @pytest.mark.parametrize("hw,seed", [((96, 130), 1), ((200, 72), 2)])
 def test_pipeline_matches_jax(hw, seed):
     dem = _dem(*hw, seed)
-    z, _ = convert.from_numpy(dem, ND)
+    z, _ = convert.from_numpy(dem, ND, device="cpu")
     out = check_converged(make_pipeline(hw, eps=0.0, with_twi=True,
                                         no_data=ND)(z))
     got = convert.to_numpy(out)
@@ -69,7 +69,7 @@ def test_pipeline_matches_jax(hw, seed):
 
 def test_pipeline_default_eps_keys_and_one_shot():
     dem = _dem(64, 70, 3)
-    out = terrain_pipeline(dem, no_data=ND)
+    out = terrain_pipeline(dem, no_data=ND, device="cpu")
     assert set(out) == {"filled", "flowdirs", "accum", "fill_iters",
                         "accum_rotations", "fill_converged",
                         "accum_converged"}
@@ -93,7 +93,7 @@ def test_check_converged_raises_on_truncated_run():
 @pytest.mark.parametrize("attrib", TERRAIN_ATTRIBUTES)
 def test_terrain_core_matches_jax(attrib):
     dem = _dem(50, 66, 6)
-    z, m = convert.from_numpy(dem, ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
     got = terrain_core(z, m, 1.5, 2.0, attrib).numpy()
     want = np.asarray(jax_terrain_core(
         jnp.asarray(dem), jnp.asarray(m.numpy()),

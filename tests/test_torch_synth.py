@@ -22,7 +22,8 @@ torch.set_num_threads(1)
                                              ((97, 150), 7, 4),
                                              ((200, 33), 3, 6)])
 def test_perlin_matches_numpy_generator(hw, seed, octaves):
-    got = tsynth.perlin_dem(*hw, seed=seed, octaves=octaves)
+    got = tsynth.perlin_dem(*hw, seed=seed, octaves=octaves,
+                            device="cpu")
     want = synth.perlin_dem(*hw, seed=seed, octaves=octaves,
                             dtype=np.float64)
     assert got.dtype == torch.float32 and tuple(got.shape) == hw
@@ -30,6 +31,7 @@ def test_perlin_matches_numpy_generator(hw, seed, octaves):
 
 
 def test_perlin_is_deterministic_and_seeded():
-    a = tsynth.perlin_dem(40, 50, seed=1)
-    assert torch.equal(a, tsynth.perlin_dem(40, 50, seed=1))
-    assert not torch.equal(a, tsynth.perlin_dem(40, 50, seed=2))
+    a = tsynth.perlin_dem(40, 50, seed=1, device="cpu")
+    assert torch.equal(a, tsynth.perlin_dem(40, 50, seed=1, device="cpu"))
+    assert not torch.equal(a, tsynth.perlin_dem(40, 50, seed=2,
+                                                device="cpu"))
