@@ -9,17 +9,21 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 Phases, one line each (any failure raises: non-zero exit, no final line):
 
 1. device — the card's ``name, power.limit`` from nvidia-smi;
-2. build — compiles the five kernels from ``richdem_tpu_torch/csrc`` and the
-   port's native engine, all at once (or loads them when the libraries are
-   newer than the sources);
+2. build — compiles the seven kernels from ``richdem_tpu_torch/csrc`` and
+   the port's native engine, all at once (or loads them when the libraries
+   are newer than the sources);
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card, on a ragged 1000×1100 Perlin DEM with nodata holes (the distance
-   sweep in every mode, the terrain kernel for all 8 attributes);
+   sweep in every mode, the terrain kernel for all 8 attributes, the D∞ and
+   multi-flow sweeps at depths 1, 8 and 0, down and transposed up);
 4. native gates — fill bit-exact against the port's copy of the
    single-core C++ engine at 2048×2176 and 4096×4224 (multigrid warm
    start), then D8 and flat resolution of those ε = 0 fills bitwise against
    the engine's; accumulation exact at 2048×2176, D8 codes within 1e-5 of
-   the cells (float32 slope ties);
+   the cells (float32 slope ties); at 2048×2176 on ε = 1e-2 fills, D∞ and
+   Quinn accumulation within rtol 2e-5 of the engine's topological queue
+   over the same proportions, and D8 codes through the two-tap scan
+   (``p = 1``, depth 0) bitwise;
 5. main path — ``make_pipeline((10240, 10240), eps=0, with_twi=True)`` on a
    device Perlin DEM: converged, mass-conserving, every kernel launched;
    three timed steps and the peak device memory;
@@ -31,10 +35,15 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    kernels launched; three timed steps and the peak memory;
 8. terrain path — ``terrain_attribute`` slope (radians) and aspect at
    10240², the terrain kernel launched;
-9. kernels at the paths' shapes — each kernel against its plain version at
+9. config 4 (``BASELINE.json``; ``bench.py``'s ``dinf_twi`` and
+   ``quinn_mfd``) at 10240²: ε = 1e-2 fill → D∞ angles → D∞ accumulation →
+   slope → TWI, and ε = 1e-2 fill → Quinn proportions → multi-flow
+   accumulation; each converged, mass-conserving, its kernels launched;
+   three timed steps, the peak memory, the rotations and the depth;
+10. kernels at the paths' shapes — each kernel against its plain version at
    10240² (fill also at the 1280² multigrid coarse grid, fill,
-   accumulation and distance sweeps also transposed), then one call of each
-   timed beside its bound.
+   accumulation, distance, D∞ and multi-flow sweeps also transposed), then
+   one call of each timed beside its bound.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the per-kernel JSON record; the last
@@ -71,12 +80,18 @@ F32_FLOPS_S = 67e12
 #:   accum_sweep acc, w, code in, acc out (4+4+1+4); up to 9 adds
 #:   dist_sweep  w, z, flags in, w out (4+4+1+4); 3 × (compare, add, min)
 #:   terrain     z, mask in, out (4+1+4); about 40 with the atan
+#:   dinf_sweep  acc, w, packed field in, acc out (4+4+4+4); decode 4,
+#:               8 taps (compare, select), 8 multiplies, 8 adds
+#:   mfd_sweep   acc, w, 8 planes in, acc out (4+4+32+4); 8 multiplies and
+#:               8 adds, 3 doubling steps of 2 chains (3 each), closure 6
 #: Bytes bound every one of them on an H100.
 COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
-        "dist_sweep": (13, 9), "terrain": (9, 40)}
+        "dist_sweep": (13, 9), "terrain": (9, 40), "dinf_sweep": (16, 36),
+        "mfd_sweep": (44, 40)}
 
 #: The TPU kernel each CUDA kernel replaces (file:line of the body), and
-#: the second TPU kernel it covers where there is one.
+#: the other TPU kernels it covers where there are any (a list where there
+#: are two).
 REPLACES = {
     "fill_sweep": ("richdem_tpu/ops/pallas_folded.py:133",
                    "richdem_tpu/ops/pallas_sweeps.py:89"),
@@ -86,10 +101,18 @@ REPLACES = {
     "dist_sweep": ("richdem_tpu/ops/pallas_scan.py:1121",
                    "richdem_tpu/ops/pallas_sweeps.py:396"),
     "terrain": ("richdem_tpu/ops/pallas_stencils.py:218", None),
+    "dinf_sweep": ("richdem_tpu/ops/pallas_dinf.py:131",
+                   "richdem_tpu/ops/pallas_scan.py:177"),
+    "mfd_sweep": ("richdem_tpu/ops/pallas_scan.py:515",
+                  ["richdem_tpu/ops/pallas_mfd.py:49",
+                   "richdem_tpu/ops/pallas_mfd.py:290"]),
 }
 #: The path whose launch counts each kernel's record reports.
 PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
-           "dist_sweep": "config2", "terrain": "terrain"}
+           "dist_sweep": "config2", "terrain": "terrain",
+           "dinf_sweep": "dinf_twi", "mfd_sweep": "quinn_mfd"}
+#: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
+FLOW_DEPTHS = (1, 8, 0)
 
 
 
@@ -248,6 +271,56 @@ def terrain_attributes(z, mask, zscale, cellsize, err, what):
                 rtol=ATAN_RTOL if attrib in ATAN else 0.0)
 
 
+def flow_fields(angles, props):
+    """The D∞ packed field (p snapped) of an angle raster and the planes of
+    (H, W, 8) proportions, each with its transposed form, as the
+    accumulations build them."""
+    from richdem_tpu_torch.ops import dinf, mfd
+
+    cq, pq = dinf.unpack_two_tap(dinf.pack_two_tap(
+        *dinf.dinf_two_tap(angles)))
+    v = dinf.pack_two_tap(cq, pq).contiguous()
+    v_t = dinf.pack_two_tap(*dinf.transpose_two_tap(cq, pq)).contiguous()
+    planes = props.permute(2, 0, 1).contiguous()
+    return {"dinf_sweep": (v, v_t),
+            "mfd_sweep": (planes, mfd.transpose_planes(planes))}
+
+
+def flow_sweeps(name):
+    """(kernel wrapper, plain version) of the D∞ or multi-flow sweep."""
+    from richdem_tpu_torch.ops import dinf, mfd
+
+    return {"dinf_sweep": (dinf.dinf_sweep, dinf.dinf_sweep_plain),
+            "mfd_sweep": (mfd.mfd_sweep, mfd.mfd_sweep_plain)}[name]
+
+
+def flow_sweep_pair(name, acc, w, field, field_t, depth, err, what):
+    """A down sweep, then a transposed up sweep of its result, of the D∞ or
+    multi-flow kernel and of its plain version, held bitwise."""
+    kern, plain = flow_sweeps(name)
+    ak = kern(acc, w, field, False, depth)
+    bitwise(name, ((ak, plain(acc, w, field, False, depth)),), err,
+            f"{what}, depth {depth}, down")
+    at, w_t = ak.t().contiguous(), w.t().contiguous()
+    bitwise(name, ((kern(at, w_t, field_t, True, depth),
+                    plain(at, w_t, field_t, True, depth)),), err,
+            f"{what}, depth {depth}, transposed up")
+
+
+def absorbed_mass(acc, props):
+    """Mass that leaves the raster or stops, in float64: each cell keeps
+    ``acc`` times its share toward no neighbour on the grid.  At the
+    fixpoint of ``A = w + PᵀA`` it equals the total weight."""
+    import torch
+    from richdem_tpu_torch.ops.stencil import neighbor
+
+    stay = torch.zeros(acc.shape, dtype=torch.float64, device=acc.device)
+    ones = torch.ones_like(acc)
+    for d in range(1, 9):
+        stay += props[..., d - 1].double() * neighbor(ones, d, 0.0).double()
+    return float((acc.double() * (1.0 - stay)).sum())
+
+
 def run_path(name, kernels, needed, fn):
     """Run one path with every launch count set to 0 just before it; read
     the counts just after and fail unless each of ``needed`` launched."""
@@ -391,6 +464,21 @@ def phase_kernel_vs_plain(dev, err):
     log("kernel-vs-plain", f"distance sweep, every mode, down and "
         f"transposed up: bitwise (cells lowered: {moved})")
 
+    # D∞ and multi-flow sweeps on this DEM's ε = 1e-2 fill, nodata holes
+    # routing nothing, from a random start
+    filled2, _, _ = fill.fill_depressions_info(z, mask, eps=1e-2)
+    fields = flow_fields(flowdirs.dinf_flowdirs(filled2, ND),
+                         flowdirs.flow_proportions(filled2, "Quinn", ND))
+    ones = torch.where(mask, 0.0, torch.ones_like(z))
+    acc0 = torch.from_numpy(rng.uniform(1.0, 50.0, tuple(z.shape))
+                            .astype(np.float32)).to(dev)
+    for name in ("dinf_sweep", "mfd_sweep"):
+        for depth in FLOW_DEPTHS:
+            flow_sweep_pair(name, acc0, ones, *fields[name], depth, err,
+                            shape)
+    log("kernel-vs-plain", f"D∞ and multi-flow (Quinn) sweeps at depths "
+        f"{FLOW_DEPTHS}, down and transposed up: bitwise")
+
     terrain_attributes(z, mask, 2.0, 3.0, err,
                        f"{shape}, zscale 2, cellsize 3")
     log("kernel-vs-plain", f"terrain, 8 attributes (zscale 2, cellsize 3, "
@@ -455,6 +543,78 @@ def phase_native(dev):
         "(float32 slope ties; limit 1e-5 of the cells)")
     if bad > 1e-5 * h * w:
         raise AssertionError(f"D8: {bad} codes differ from native")
+
+
+def phase_native_flow(dev):
+    """Config 4's accumulations against the native topological queue over
+    the same proportions, on ε = 1e-2 fills at 2048×2176 (the gates of
+    tests/test_tpu_only.py): D∞ (snapped two-tap proportions) and Quinn
+    within rtol 2e-5, D∞ mass within 1e-5; D8 codes through the two-tap
+    scan (p = 1, depth 0) bitwise."""
+    import torch
+    from richdem_tpu_torch import native
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import dinf, fill, flowdirs, mfd
+
+    h, w = NATIVE_GATES[0][0]
+    nd = torch.zeros((h, w), dtype=torch.bool, device=dev)
+
+    def filled_of(seed):
+        z = tsynth.perlin_dem(h, w, seed=seed, device=dev)
+        filled, _, done = fill.fill_depressions_info(z, eps=1e-2)
+        if not done:
+            raise AssertionError(f"fill at eps=1e-2 (seed {seed}) did not "
+                                 "converge")
+        return filled
+
+    def held(name, got, want, mass_tol=None):
+        got = got.cpu().numpy().astype(np.float64)
+        rel = float(np.max(np.abs(got - want) / want))
+        mass = abs(got.sum() / want.sum() - 1.0)
+        if not np.allclose(got, want, rtol=2e-5, atol=0.0) or (
+                mass_tol is not None and mass >= mass_tol):
+            raise AssertionError(f"{name} {h}x{w} differs from native: rel "
+                                 f"{rel:.3e}, mass {mass:.3e}")
+        return rel, mass
+
+    filled = filled_of(31)
+    ang = flowdirs.dinf_flowdirs(filled)
+    code, p = dinf.dinf_two_tap(ang)
+    acc, rot, done = dinf.dinf_accumulation_info(code, p, torch.ones_like(
+        filled))
+    if not done:
+        raise AssertionError("D∞ accumulation did not converge")
+    cq, pq = dinf.unpack_two_tap(dinf.pack_two_tap(code, p))
+    props = dinf.two_tap_props(cq, pq).cpu().numpy().astype(np.float64)
+    rel, mass = held("D∞", acc, native.accum_props(props), 1e-5)
+    want_ang = native.dinf_flowdirs(filled.cpu().numpy().astype(np.float64))
+    flips = int((np.abs(ang.cpu().numpy() - want_ang) > 1e-5).sum())
+    log("native", f"D∞ accumulation {h}x{w} (eps=1e-2 fill, depth "
+        f"{dinf.DINF_DEPTH}): within rtol 2e-5 of native over the snapped "
+        f"proportions (max rel {rel:.3e}, mass {mass:.3e}), {rot} "
+        f"rotations; angles: {flips} cells differ from native's float64 "
+        "angles by more than 1e-5 rad")
+
+    filled = filled_of(24)
+    props = flowdirs.flow_proportions(filled, "Quinn")
+    acc, rot, done = mfd.mfd_accumulation(props, return_info=True)
+    rel, mass = held("Quinn", acc, native.accum_props(
+        props.cpu().numpy().astype(np.float64)))
+    log("native", f"Quinn accumulation {h}x{w} (eps=1e-2 fill, depth "
+        f"{mfd.MFD_DEPTH}): within rtol 2e-5 of native (max rel {rel:.3e}, "
+        f"mass {mass:.3e}), {rot} rotations")
+
+    filled = filled_of(22)
+    fd = flowdirs.d8_core(filled, nd)
+    acc, rot, _ = dinf.dinf_accumulation(fd.to(torch.int32),
+                                         torch.ones_like(filled), depth=0,
+                                         max_rotations=64, return_info=True)
+    got = acc.cpu().numpy().astype(np.float64)
+    if not np.array_equal(got, native.accum_d8(fd.cpu().numpy())):
+        raise AssertionError("D8 through the two-tap scan differs from "
+                             "native")
+    log("native", f"D8 codes through the two-tap scan (p = 1, depth 0) "
+        f"{h}x{w}: bitwise equal to native.accum_d8, {rot} rotations")
 
 
 def phase_main(dev, card, kernels):
@@ -596,6 +756,102 @@ def phase_config2(dev, card, kernels):
     return launches
 
 
+def _config4_fill(z):
+    from richdem_tpu_torch.ops import fill
+
+    filled, fiters, fdone = fill.fill_depressions_info(z, eps=1e-2,
+                                                       max_iters=256)
+    if not fdone:
+        raise AssertionError(f"config 4 fill not converged ({fiters})")
+    return filled, fiters
+
+
+def dinf_twi_step(z, depth=None):
+    """bench.py's dinf_twi through the port's entry points: ε = 1e-2 fill
+    → D∞ angles → D∞ accumulation (at ``depth``, the default if None) →
+    slope → TWI."""
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops import dinf
+
+    filled, fiters = _config4_fill(z)
+    ang = rt.dinf_flowdirs(filled)
+    acc, rot, done = rt.dinf_accumulation_from_angles(
+        ang, return_info=True, depth=dinf.DINF_DEPTH if depth is None
+        else depth)
+    slope = rt.terrain_attribute(filled, "slope_radians")
+    return {"filled": filled, "angles": ang, "accum": acc,
+            "twi": rt.twi(acc, slope), "fill_iters": fiters,
+            "rotations": rot, "converged": done}
+
+
+def quinn_mfd_step(z, depth=None):
+    """bench.py's quinn_mfd through the port's entry points: ε = 1e-2
+    fill → Quinn proportions → multi-flow accumulation (at ``depth``, the
+    default if None)."""
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops import mfd
+
+    filled, fiters = _config4_fill(z)
+    props = rt.flow_proportions(filled, "Quinn")
+    acc, rot, done = rt.flow_accumulation_from_props(
+        props, return_info=True, depth=mfd.MFD_DEPTH if depth is None
+        else depth)
+    return {"filled": filled, "props": props, "accum": acc,
+            "fill_iters": fiters, "rotations": rot, "converged": done}
+
+
+def phase_config4(dev, card, kernels, z):
+    """BASELINE.json config 4 (bench.py's dinf_twi and quinn_mfd) at full
+    width, through the entry points (:func:`dinf_twi_step`,
+    :func:`quinn_mfd_step`)."""
+    import torch
+    from richdem_tpu_torch.ops import dinf, mfd
+
+    def props_of(out):
+        if "props" in out:
+            return out["props"]
+        code, p = dinf.dinf_two_tap(out["angles"])
+        return dinf.two_tap_props(*dinf.unpack_two_tap(
+            dinf.pack_two_tap(code, p)))
+
+    n = MAIN * MAIN
+    outs, launches = {}, {}
+    for name, step, needed, depth in (
+            ("dinf_twi", dinf_twi_step,
+             ("fill_sweep", "dinf_sweep", "terrain"), dinf.DINF_DEPTH),
+            ("quinn_mfd", quinn_mfd_step, ("fill_sweep", "mfd_sweep"),
+             mfd.MFD_DEPTH)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, launches[name] = run_path(name, kernels, needed,
+                                       lambda: step(z))
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        if not out["converged"]:
+            raise AssertionError(f"{name}: accumulation not converged")
+        for key in ("accum", "twi"):
+            x = out.get(key)
+            if x is not None and (tuple(x.shape) != (MAIN, MAIN) or not bool(
+                    torch.isfinite(x).all())):
+                raise AssertionError(f"{name} {key}: wrong shape or "
+                                     "non-finite values")
+        mass = absorbed_mass(out["accum"], props_of(out))
+        if not abs(mass - n) <= 1e-5 * n:
+            raise AssertionError(f"{name}: mass not conserved: {mass} vs "
+                                 f"{n}")
+        ev_secs, host_secs, last = timed_steps(step, z)
+        if not torch.equal(last["accum"], out["accum"]):
+            raise AssertionError(f"{name} is not deterministic")
+        log(name, f"{MAIN}x{MAIN} Perlin seed 0, eps=1e-2: fill rotations "
+            f"{out['fill_iters']}, accumulation rotations "
+            f"{out['rotations']} at depth {depth}; {STEPS} steps after one "
+            f"warm-up: {ev_secs} s (CUDA events), {host_secs} s (host); "
+            f"best {n / min(ev_secs):.4e} cells/s; peak allocated "
+            f"{peak_gib:.3f} GiB (warm-up step, DEM included) on [{card}]; "
+            f"mass {mass:.1f} of {n}; launches {launches[name]}")
+        outs[name] = out
+    return outs, launches
+
+
 def phase_terrain(dev, card, z, kernels):
     """terrain_attribute, the entry point, on the 10240² DEM."""
     import torch
@@ -707,25 +963,64 @@ def phase_timing(dev, card, out, z, err, times):
             f"({bound_by}), {100 * bound / ms:.1f} % of it, on [{card}]")
 
 
+def phase_flow_timing(dev, card, c4, err, times):
+    """The D∞ and multi-flow sweeps against their plain versions on the
+    config-4 paths' own fields at 10240² (a down sweep and a transposed up
+    sweep at the default depth), then one call of each timed."""
+    import torch
+    from richdem_tpu_torch.ops import dinf, mfd
+
+    fields = flow_fields(c4["dinf_twi"]["angles"], c4["quinn_mfd"]["props"])
+    depths = {"dinf_sweep": dinf.DINF_DEPTH, "mfd_sweep": mfd.MFD_DEPTH}
+    n = MAIN * MAIN
+    ones = torch.ones((MAIN, MAIN), dtype=torch.float32, device=dev)
+    for name, (field, field_t) in fields.items():
+        depth, (kern, plain) = depths[name], flow_sweeps(name)
+        flow_sweep_pair(name, ones, ones, field, field_t, depth, err,
+                        f"{MAIN}x{MAIN}")
+        call = (lambda: kern(ones, ones, field, False, depth))
+        call()
+        ms = cuda_ms(call, reps=5)
+        plain_ms = cuda_ms(lambda: plain(ones, ones, field, False, depth))
+        nbytes, flops = COST[name][0] * n, COST[name][1] * n
+        bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOPS_S \
+            else "operations"
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by)
+        log("timing", f"{name} at {MAIN}x{MAIN}, depth {depth}, on the "
+            f"config-4 path's field: bitwise to plain down and transposed "
+            f"up; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call; "
+            f"bound {bound:.4f} ms ({bound_by}), {100 * bound / ms:.1f} % of "
+            f"it, on [{card}]")
+
+
 def main():
     card = phase_device()
     import torch
-    from richdem_tpu_torch.ops import accum, fill, flats, flowdirs, terrain
+    from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs,
+                                       mfd, terrain)
 
     dev = torch.device("cuda", 0)
     kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP,
-               flats.DIST_SWEEP, terrain.TERRAIN]
+               flats.DIST_SWEEP, terrain.TERRAIN, dinf.DINF_SWEEP,
+               mfd.MFD_SWEEP]
     phase_build(kernels)
     err = {k.name: 0.0 for k in kernels}
     phase_kernel_vs_plain(dev, err)
     phase_native(dev)
+    phase_native_flow(dev)
     out, launches, z = phase_main(dev, card, kernels)
     phase_flats_full(out)
     path_launches = {"main": launches,
                      "config2": phase_config2(dev, card, kernels),
                      "terrain": phase_terrain(dev, card, z, kernels)}
+    c4, c4_launches = phase_config4(dev, card, kernels, z)
+    path_launches.update(c4_launches)
     times = {}
     phase_timing(dev, card, out, z, err, times)
+    del out
+    phase_flow_timing(dev, card, c4, err, times)
     if any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
            or m == "richdem_tpu"
            for m in sys.modules if sys.modules[m] is not None):

@@ -1,18 +1,23 @@
 """richdem_tpu_torch — the PyTorch / CUDA port of richdem_tpu.
 
 The main path (fill → D8 flow directions → D8 accumulation, plus slope and
-TWI), ε-fill with flat resolution, and the terrain attributes run on an
-NVIDIA Hopper card through five hand-written CUDA kernels (``csrc/``), built
-with ``nvcc`` at first use, and on the CPU through their plain PyTorch
+TWI), ε-fill with flat resolution, the terrain attributes, and D∞ and
+multi-flow routing with their accumulation (TWI, SPI) run on an NVIDIA
+Hopper card through seven hand-written CUDA kernels (``csrc/``), built with
+``nvcc`` at first use, and on the CPU through their plain PyTorch
 versions.  Entry points run where a given tensor lives, and put arrays on
 the card unless asked for another device.  The JAX package ``richdem_tpu``
 stays the reference; this package imports nothing of it and never imports
 JAX.  Importing it touches neither CUDA nor ``nvcc``.
 """
 
+from richdem_tpu_torch.methods import spi, twi
+from richdem_tpu_torch.ops.accum import (dinf_accumulation_from_angles,
+                                         flow_accumulation_from_props)
 from richdem_tpu_torch.ops.fill import auto_epsilon, fill_epsilon
 from richdem_tpu_torch.ops.flats import (flat_mask_and_labels_device,
                                          resolve_flats)
+from richdem_tpu_torch.ops.flowdirs import dinf_flowdirs, flow_proportions
 from richdem_tpu_torch.ops.terrain import terrain_attribute
 from richdem_tpu_torch.pipeline import (check_converged, make_pipeline,
                                         terrain_pipeline)
@@ -22,4 +27,6 @@ __version__ = "0.1.0"
 __all__ = ["__version__", "make_pipeline", "terrain_pipeline",
            "check_converged", "auto_epsilon", "fill_epsilon",
            "resolve_flats", "flat_mask_and_labels_device",
-           "terrain_attribute"]
+           "terrain_attribute", "dinf_flowdirs", "flow_proportions",
+           "dinf_accumulation_from_angles", "flow_accumulation_from_props",
+           "twi", "spi"]

@@ -1,12 +1,12 @@
 """Build the hand-written Hopper kernels and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on first
-use with ``nvcc`` into ``build/lib<name>.so`` (rebuilt when a source is newer
-than the library), then loaded with :mod:`ctypes`.  Sources include no
-PyTorch header, so a build takes seconds.  There is no fallback: without
-``nvcc``, or when a build fails, :meth:`Kernel.function` raises
-``RuntimeError``.
-Nothing here runs at import time.
+use with ``nvcc`` into ``build/lib<name>.so`` (rebuilt when the source or a
+shared ``csrc/*.cuh`` header is newer than the library), then loaded with
+:mod:`ctypes`.  Sources include no PyTorch header, so a build takes
+seconds.  There is no fallback: without ``nvcc``, or when a build fails,
+:meth:`Kernel.function` raises ``RuntimeError``.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -77,9 +77,15 @@ class Kernel:
         self._lock = threading.Lock()
 
     def _stale(self) -> bool:
-        return (not os.path.exists(self.library)
-                or os.path.getmtime(self.source)
-                > os.path.getmtime(self.library))
+        """The library is missing, or older than its source or a shared
+        header (``csrc/*.cuh``)."""
+        if not os.path.exists(self.library):
+            return True
+        sources = [self.source] + [os.path.join(CSRC, n)
+                                   for n in os.listdir(CSRC)
+                                   if n.endswith(".cuh")]
+        built = os.path.getmtime(self.library)
+        return any(os.path.getmtime(s) > built for s in sources)
 
     def _build(self) -> None:
         """Compile the source into the library; record the seconds taken."""

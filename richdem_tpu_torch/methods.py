@@ -1,13 +1,13 @@
 """Derived hydrological indices (plain PyTorch).
 
-Counterpart of ``richdem_tpu.methods.twi``.
+Counterpart of ``richdem_tpu.methods.twi`` and ``spi``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["twi"]
+__all__ = ["twi", "spi"]
 
 
 def twi(accum, slope_radians, cellsize=1.0, min_slope=1e-6):
@@ -16,3 +16,9 @@ def twi(accum, slope_radians, cellsize=1.0, min_slope=1e-6):
     a = accum * cellsize
     tanb = torch.clamp(torch.tan(slope_radians), min=min_slope)
     return torch.log(torch.clamp(a, min=1e-30) / tanb)
+
+
+def spi(accum, slope_radians, cellsize=1.0):
+    """Stream power index ``a · tan beta``; ``a`` = accumulation ×
+    cellsize."""
+    return accum * cellsize * torch.tan(slope_radians)

@@ -2,8 +2,8 @@
 
 The port's own copy of ``richdem_tpu.native``: the exact reference that the
 on-card gates of ``chip_smoke.py`` hold the kernels against (Priority-Flood
-fill, D8 codes, topological-queue accumulation, flat resolution).  It binds
-only the functions the port uses.
+fill, D8 codes, topological-queue accumulation, flat resolution, D∞ angles
+and multi-flow proportions).  It binds only the functions the port uses.
 
 ``core.cpp`` is built at first use with the reference's g++ flags into
 ``richdem_tpu_torch/build/librichdem_native.so`` (rebuilt when the source is
@@ -20,8 +20,9 @@ import threading
 
 import numpy as np
 
-__all__ = ["fill", "d8_flowdirs", "accum_d8", "resolve_flats",
-           "flat_mask_and_labels"]
+__all__ = ["fill", "d8_flowdirs", "accum_d8", "accum_props",
+           "resolve_flats", "flat_mask_and_labels", "dinf_flowdirs",
+           "dinf_props", "mfd_props"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "core.cpp")
@@ -72,6 +73,16 @@ def _load():
         lib.rn_d8_flowdirs.restype = ctypes.c_int
         lib.rn_accum_d8.argtypes = [pi8, ctypes.c_void_p, p64, i64, i64]
         lib.rn_accum_d8.restype = ctypes.c_int
+        lib.rn_accum_props.argtypes = [p64, ctypes.c_void_p, p64, i64, i64]
+        lib.rn_accum_props.restype = ctypes.c_int
+        lib.rn_dinf_flowdirs.argtypes = [p64, p64, i64, i64, f64,
+                                         ctypes.c_int, f64]
+        lib.rn_dinf_flowdirs.restype = ctypes.c_int
+        lib.rn_dinf_props.argtypes = [p64, p64, i64, i64]
+        lib.rn_dinf_props.restype = ctypes.c_int
+        lib.rn_mfd_props.argtypes = [p64, p64, i64, i64, f64,
+                                     ctypes.c_int, f64]
+        lib.rn_mfd_props.restype = ctypes.c_int
         lib.rn_resolve_flats.argtypes = [p64, pi8, i64, i64, f64,
                                          ctypes.c_int, ctypes.c_void_p,
                                          ctypes.c_void_p]
@@ -124,6 +135,59 @@ def accum_d8(flowdirs, weights=None):
     if rc != 0:
         raise ValueError("flow graph has a cycle — fill the DEM first")
     return acc
+
+
+def accum_props(props, weights=None):
+    """Topological-queue accumulation from (H, W, 8) proportions; raises
+    on cycles."""
+    lib = _load()
+    props = np.ascontiguousarray(props, dtype=np.float64)
+    h, w, k = props.shape
+    if k != 8:
+        raise ValueError(f"proportions must be (H, W, 8), not {props.shape}")
+    acc = np.empty((h, w), np.float64)
+    wptr = None
+    if weights is not None:
+        weights = np.ascontiguousarray(weights, dtype=np.float64)
+        wptr = weights.ctypes.data_as(ctypes.c_void_p)
+    rc = lib.rn_accum_props(props, wptr, acc, h, w)
+    if rc != 0:
+        raise ValueError("flow graph has a cycle — fill the DEM first")
+    return acc
+
+
+def dinf_flowdirs(dem, no_data=None, cellsize=1.0):
+    """Tarboton D∞ angles (radians counter-clockwise from East; -1
+    NO_FLOW, -2 nodata)."""
+    lib = _load()
+    z = np.ascontiguousarray(dem, dtype=np.float64)
+    h, w = z.shape
+    ang = np.empty((h, w), np.float64)
+    nd, has_nd = _nodata_args(no_data)
+    lib.rn_dinf_flowdirs(z, ang, h, w, nd, has_nd, float(cellsize))
+    return ang
+
+
+def dinf_props(angles):
+    """(H, W, 8) proportions from D∞ angles."""
+    lib = _load()
+    ang = np.ascontiguousarray(angles, dtype=np.float64)
+    h, w = ang.shape
+    props = np.empty((h, w, 8), np.float64)
+    lib.rn_dinf_props(ang, props, h, w)
+    return props
+
+
+def mfd_props(dem, no_data=None, exponent=1.0):
+    """Multi-flow proportions ∝ slope ** exponent (Quinn at 1.0, Freeman
+    1.1, Holmgren any)."""
+    lib = _load()
+    z = np.ascontiguousarray(dem, dtype=np.float64)
+    h, w = z.shape
+    props = np.empty((h, w, 8), np.float64)
+    nd, has_nd = _nodata_args(no_data)
+    lib.rn_mfd_props(z, props, h, w, nd, has_nd, float(exponent))
+    return props
 
 
 def _flats_impl(dem, flowdirs, no_data, want_mask):

@@ -1,7 +1,8 @@
-"""D8 flow accumulation by Gauss–Seidel directional sweeps.
+"""Flow accumulation: D8 by Gauss–Seidel directional sweeps, and the entry
+points of D∞ and multi-flow accumulation.
 
-Counterpart of ``richdem_tpu.ops.accum`` (``_d8_gs_impl``,
-``d8_accumulation``) and of the TPU kernels
+Counterpart of ``richdem_tpu.ops.accum``.  D8 (``_d8_gs_impl``,
+``d8_accumulation``) replaces the TPU kernels
 ``richdem_tpu.ops.pallas_folded._accum_kernel`` /
 ``pallas_sweeps._accum_down_kernel``.  One sweep solves ``A = w + PᵀA``
 along every flow-path segment that is monotone in its direction; a rotation
@@ -9,57 +10,44 @@ is down, up, transposed-down, transposed-up.  A CUDA tensor goes through
 ``csrc/accum_sweep.cu``; a CPU tensor through :func:`accum_sweep_plain`.
 Convergence is equality over a whole rotation (per-sweep flags chatter in
 the last bit of float sums), and a non-converged result raises.
+
+:func:`flow_accumulation_from_props` and
+:func:`dinf_accumulation_from_angles` run the multi-flow and D∞ sweeps
+(:mod:`~richdem_tpu_torch.ops.mfd`, :mod:`~richdem_tpu_torch.ops.dinf`)
+on every device, where the reference takes them only on the TPU and runs
+a Jacobi fixpoint elsewhere.  The Jacobi fixpoint
+(:func:`accumulation_jacobi_info`) and D8 pointer doubling
+(:func:`d8_accumulation_doubling`) stay as plain-PyTorch cross-checks.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
 from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
+from richdem_tpu_torch.ops.dinf import (DINF_DEPTH, dinf_accumulation,
+                                        dinf_two_tap)
 from richdem_tpu_torch.ops.fill import _require_converged
-from richdem_tpu_torch.ops.stencil import as_tensor
-from richdem_tpu_torch.ops.sweeps import seam_columns
+from richdem_tpu_torch.ops.mfd import MFD_DEPTH, mfd_accumulation
+from richdem_tpu_torch.ops.stencil import as_tensor, neighbor
+from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
+                                          accumulation_rotations,
+                                          accumulation_trios, pad_row,
+                                          seam_columns)
 
 __all__ = ["ACCUM_SWEEP", "PERM_TRANSPOSE", "accum_sweep",
-           "accum_sweep_plain", "d8_accumulation_info", "d8_accumulation"]
+           "accum_sweep_plain", "d8_accumulation_info", "d8_accumulation",
+           "flow_accumulation_from_props", "dinf_accumulation_from_angles",
+           "accumulation_jacobi_info", "d8_accumulation_doubling"]
 
 _P = ctypes.c_void_p
 ACCUM_SWEEP = Kernel("accum_sweep", "rd_accum_sweep",
                      [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P])
-
-
-def _transpose_permutation() -> np.ndarray:
-    """Code of each direction in the transposed grid: (dy, dx) → (dx, dy).
-    The reference's ``ops/accum._PERM_TRANSPOSE``, derived from the pinned
-    topology tables instead of copied."""
-    perm = np.zeros(9, np.int8)
-    for d in range(1, 9):
-        for e in range(1, 9):
-            if (topology.DX[e] == topology.DY[d]
-                    and topology.DY[e] == topology.DX[d]):
-                perm[d] = e
-    return perm
-
-
-#: code permutation under transposition (0 stays NO_FLOW)
-PERM_TRANSPOSE = _transpose_permutation()
-
-
-def _trios(reverse):
-    """(new-side, old-side) code trios (straight, west source, east
-    source): the row before in sweep order feeds the new side."""
-    down, up = (7, 6, 8), (3, 4, 2)
-    return (up, down) if reverse else (down, up)
-
-
-def _pad1(x):
-    return F.pad(x[None], (1, 1))[0]
 
 
 def accum_sweep_plain(acc_in, w, fd, reverse, tile=SWEEP_TILE):
@@ -72,7 +60,7 @@ def accum_sweep_plain(acc_in, w, fd, reverse, tile=SWEEP_TILE):
     sweep is bitwise the kernel's."""
     h, wd = acc_in.shape
     dev = acc_in.device
-    (ns, nw, ne), (os_, ow, oe) = _trios(reverse)
+    (ns, nw, ne), (os_, ow, oe) = accumulation_trios(reverse)
     out = torch.empty_like(acc_in)
     zero = torch.zeros((), dtype=acc_in.dtype, device=dev)
     lseam, rseam = seam_columns(wd, tile, dev)
@@ -81,15 +69,15 @@ def accum_sweep_plain(acc_in, w, fd, reverse, tile=SWEEP_TILE):
     pa = torch.zeros(wd + 2, dtype=acc_in.dtype, device=dev)
     pf = torch.zeros(wd + 2, dtype=fd.dtype, device=dev)
     for k, r in enumerate(rows):
-        la, lf = _pad1(acc_in[r]), _pad1(fd[r])
+        la, lf = pad_row(acc_in[r]), pad_row(fd[r])
         rn = r + step
         if 0 <= rn < h:
-            na, nf = _pad1(acc_in[rn]), _pad1(fd[rn])
+            na, nf = pad_row(acc_in[rn]), pad_row(fd[rn])
         else:
             na, nf = torch.zeros_like(la), torch.zeros_like(lf)
         west, east = pa[:-2], pa[2:]
         if k > 0 and lseam.numel():
-            old = _pad1(acc_in[rows[k - 1]])
+            old = pad_row(acc_in[rows[k - 1]])
             west, east = west.clone(), east.clone()
             west[lseam] = old[lseam]       # old[c - 1] in padded coords
             east[rseam] = old[rseam + 2]   # old[c + 1]
@@ -103,7 +91,7 @@ def accum_sweep_plain(acc_in, w, fd, reverse, tile=SWEEP_TILE):
                 + torch.where(lf[2:] == 1, la[2:], zero))
         new = ((w[r] + newc) + oldb) + oldl
         out[r] = new
-        pa, pf = _pad1(new), lf
+        pa, pf = pad_row(new), lf
     return out
 
 
@@ -139,20 +127,9 @@ def d8_accumulation_info(flowdirs, weights, max_rotations=64,
     perm = torch.as_tensor(PERM_TRANSPOSE, device=fd.device)
     fd_t = perm[fd.clamp(min=0).long()].t().contiguous()
     w_t = w.t().contiguous()
-    acc = w
-    rotations, converged = 0, False
-    while rotations < max_rotations:
-        new = sweep(acc, w, fd, False)
-        new = sweep(new, w, fd, True)
-        t = sweep(new.t().contiguous(), w_t, fd_t, False)
-        t = sweep(t, w_t, fd_t, True)
-        new = t.t().contiguous()
-        rotations += 1
-        converged = torch.equal(new, acc)
-        acc = new
-        if converged:
-            break
-    return acc, rotations, converged
+    return accumulation_rotations(
+        w, lambda a, rev: sweep(a, w, fd, rev),
+        lambda a, rev: sweep(a, w_t, fd_t, rev), max_rotations)
 
 
 def d8_accumulation(flowdirs, weights=None, no_data_mask=None,
@@ -174,6 +151,104 @@ def d8_accumulation(flowdirs, weights=None, no_data_mask=None,
         weights = torch.where(no_data_mask, 0.0, weights)
     acc, _, done = d8_accumulation_info(fd, weights, max_rotations)
     _require_converged(done, "D8 GS accumulation", max_rotations)
+    if no_data_mask is not None:
+        acc = torch.where(no_data_mask, 0.0, acc)
+    return acc
+
+
+def flow_accumulation_from_props(props, weights=None, no_data_mask=None,
+                                 max_rotations=512, return_info=False,
+                                 depth=MFD_DEPTH, device="cuda"):
+    """Weighted upstream accumulation from ``(H, W, 8)`` proportions, by the
+    multi-flow sweeps (:func:`~richdem_tpu_torch.ops.mfd.mfd_accumulation`)
+    on every device.  Nodata cells must already have zero proportions
+    (:func:`~richdem_tpu_torch.ops.flowdirs.flow_proportions` gives them
+    that); the mask zeroes their weight and output.  ``return_info`` adds
+    ``(rotations, converged)``.  The reference's ``max_iters`` bounds its
+    CPU Jacobi fallback, which the port does not take; ``max_rotations``
+    bounds the sweeps, as on the TPU."""
+    return mfd_accumulation(props, weights, no_data_mask, max_rotations,
+                            return_info, depth, device)
+
+
+def dinf_accumulation_from_angles(angles, weights=None, no_data_mask=None,
+                                  return_info=False, max_rotations=512,
+                                  depth=DINF_DEPTH, device="cuda"):
+    """D∞ accumulation straight from the Tarboton angle raster, by the
+    two-tap sweeps (:func:`~richdem_tpu_torch.ops.dinf.dinf_accumulation`)
+    on every device (the reference's TPU path; its CPU path runs Jacobi
+    over unsnapped proportions).  ``return_info`` adds ``(rotations,
+    converged)``."""
+    a = as_tensor(angles, device)
+    code, p = dinf_two_tap(a)
+    return dinf_accumulation(code, p, weights, no_data_mask, max_rotations,
+                             return_info, depth)
+
+
+def _inflow_step(acc, props):
+    """One application of Pᵀ: the neighbour in direction d sends
+    ``acc * props[..., inverse(d) - 1]``."""
+    total = torch.zeros_like(acc)
+    for d in range(1, 9):
+        inv = int(topology.D8_INVERSE[d])
+        total = total + neighbor(acc * props[..., inv - 1], d, 0.0)
+    return total
+
+
+def accumulation_jacobi_info(props, weights=None, max_iters=4096,
+                             check_every=8):
+    """Jacobi accumulation ``A ← w + PᵀA`` from ``(H, W, 8)`` proportions;
+    returns ``(accum, iters, converged)``.  Converges in longest-flow-path
+    iterations: a cross-check, not a fast path."""
+    h, w, _ = props.shape
+    dtype = torch.float64 if props.dtype == torch.float64 else torch.float32
+    props = props.to(dtype)
+    if weights is None:
+        weights = torch.ones((h, w), dtype=dtype, device=props.device)
+    weights = weights.to(dtype)
+    acc, iters, done = weights, 0, False
+    while not done and iters < max_iters:
+        new = acc
+        for _ in range(check_every):
+            new = weights + _inflow_step(new, props)
+        done = torch.equal(new, acc)
+        acc = new
+        iters += check_every
+    return acc, iters, done
+
+
+def d8_accumulation_doubling(flowdirs, weights=None, no_data_mask=None,
+                             rounds=None, device="cuda"):
+    """Exact D8 accumulation in ⌈log₂(n)⌉ pointer-doubling rounds: each
+    cell adds its mass to its 2ᵏ-th successor, then squares the pointer
+    (NO_FLOW, nodata and off-grid targets drain to a sink).  A cross-check
+    of :func:`d8_accumulation`; scatter adds in float32 regroup sums."""
+    fd = as_tensor(flowdirs, device).to(torch.int64)
+    dev = fd.device
+    h, w = fd.shape
+    n = h * w
+    if weights is None:
+        weights = torch.ones((h, w), dtype=torch.float32, device=dev)
+    weights = as_tensor(weights, dev).to(torch.float32)
+    if no_data_mask is not None:
+        no_data_mask = as_tensor(no_data_mask, dev)
+        weights = torch.where(no_data_mask, 0.0, weights)
+    if rounds is None:
+        rounds = max(1, math.ceil(math.log2(max(n, 2))))
+    rows = torch.arange(h, device=dev)[:, None].expand(h, w)
+    cols = torch.arange(w, device=dev)[None, :].expand(h, w)
+    code = fd.clamp(min=0)
+    nr = rows + torch.as_tensor(topology.DY, device=dev).long()[code]
+    nc = cols + torch.as_tensor(topology.DX, device=dev).long()[code]
+    valid = (fd > 0) & (nr >= 0) & (nr < h) & (nc >= 0) & (nc < w)
+    sink = torch.tensor([n], device=dev)
+    succ = torch.cat([torch.where(valid, nr * w + nc, n).reshape(-1), sink])
+    acc = torch.cat([weights.reshape(-1), weights.new_zeros(1)])
+    live = torch.arange(n + 1, device=dev) < n
+    for _ in range(rounds):
+        acc = acc.index_add(0, succ, torch.where(live, acc, 0.0))
+        succ = succ[succ]
+    acc = acc[:n].reshape(h, w)
     if no_data_mask is not None:
         acc = torch.where(no_data_mask, 0.0, acc)
     return acc

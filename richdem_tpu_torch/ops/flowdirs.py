@@ -1,17 +1,27 @@
-"""D8 / D4 steepest-descent flow directions.
+"""Flow directions and flow proportions.
 
-Counterpart of ``richdem_tpu.ops.flowdirs`` (``d8_core``, ``d8_flowdirs``)
-and of the TPU kernel ``richdem_tpu.ops.pallas_stencils._d8_kernel``.  A
-CUDA tensor goes through ``csrc/d8.cu``; a CPU tensor through the plain
-shifted-view version :func:`d8_plain`.  Both follow ``d8_core``: slope by
-division, off-grid and nodata neighbours invalid, first maximum in
-direction order 1..8 with strict ``>``, ``NO_FLOW`` unless the best slope
-is > 0, ``FLOWDIR_NO_DATA`` at nodata.  Codes are int8.
+Counterpart of ``richdem_tpu.ops.flowdirs``.  D8 / D4 steepest descent
+(``d8_core``, ``d8_flowdirs``) replaces the TPU kernel
+``richdem_tpu.ops.pallas_stencils._d8_kernel``: a CUDA tensor goes through
+``csrc/d8.cu``, a CPU tensor through the plain shifted-view version
+:func:`d8_plain`.  Both follow ``d8_core``: slope by division, off-grid and
+nodata neighbours invalid, first maximum in direction order 1..8 with
+strict ``>``, ``NO_FLOW`` unless the best slope is > 0,
+``FLOWDIR_NO_DATA`` at nodata.  Codes are int8.
+
+The other metrics are XLA stencils in the reference and plain PyTorch here,
+on any device: Tarboton D∞ angles (:func:`dinf_flowdirs`) and the
+``(H, W, 8)`` proportions of :func:`flow_proportions` (D8/D4, D∞, Quinn,
+Freeman, Holmgren, Seibert–McGlynn).  Proportions come back as an
+``(H, W, 8)`` view of a plane-major ``(8, H, W)`` stack, the layout the
+accumulation sweeps read, so handing them on costs no copy.  Rho8 waits for
+its kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -20,7 +30,9 @@ from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import Kernel, stream_handle
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
 
-__all__ = ["D8", "d8_plain", "d8_core", "d8_flowdirs"]
+__all__ = ["D8", "d8_plain", "d8_core", "d8_flowdirs", "dinf_flowdirs",
+           "proportions_from_dinf", "proportions_from_d8",
+           "flow_proportions"]
 
 _P = ctypes.c_void_p
 D8 = Kernel("d8", "rd_d8_flowdirs",
@@ -98,3 +110,208 @@ def d8_flowdirs(dem, no_data=None, topology_name="D8", cellsize=1.0,
     dem = as_tensor(dem, device)
     return d8_core(dem.to(torch.float32), nodata_like(dem, no_data),
                    cellsize, topology_name)
+
+
+# -- multi-flow metrics (plain PyTorch, as XLA in the reference) ---------
+
+def _neighbor_slopes(z, nodata_mask, cellsize, dirs):
+    """(len(dirs), H, W) slopes toward each direction, ``-3e38`` where the
+    neighbour is off-grid or nodata (``ops.flowdirs._neighbor_slopes``)."""
+    compute = z.to(torch.float32) if z.dtype == torch.float16 else z
+    big = torch.tensor(_FLT_MAX, dtype=compute.dtype, device=z.device)
+    neg = torch.tensor(_INVALID, dtype=compute.dtype, device=z.device)
+    zed = torch.where(nodata_mask, big, compute)
+    cs = torch.tensor(cellsize, dtype=torch.float32, device=z.device)
+    slopes = torch.empty((len(dirs),) + tuple(z.shape), dtype=compute.dtype,
+                         device=z.device)
+    for i, d in enumerate(dirs):
+        zn = neighbor(zed, d, _FLT_MAX)
+        dist = torch.tensor(topology.DR[d], dtype=compute.dtype,
+                            device=z.device) * cs
+        torch.where(zn < big, (compute - zn) / dist, neg, out=slopes[i])
+    return slopes
+
+
+def _as_props(planes):
+    """The ``(H, W, 8)`` view of a plane-major ``(8, H, W)`` stack."""
+    return planes.permute(1, 2, 0)
+
+
+def _mfd_impl(z, nodata_mask, cellsize, exponent):
+    """Slope-weighted multi-flow proportions: share toward d ∝
+    ``max(slope_d, 0) ** exponent`` (Quinn 1991 at 1, Freeman 1991 at
+    1.1, Holmgren 1994).  The reference's ``where``s, worked in place on
+    the one (8, H, W) stack: for ``exponent`` > 0 a zero slope weighs 0 and
+    a zero total leaves 0/1e-30 = 0."""
+    if exponent <= 0:
+        raise ValueError(f"exponent must be > 0, not {exponent}")
+    wts = _neighbor_slopes(z, nodata_mask, cellsize, range(1, 9))
+    wts.clamp_(min=0.0).pow_(exponent)
+    tiny = torch.tensor(1e-30, dtype=wts.dtype, device=wts.device)
+    planes = wts.div_(torch.maximum(wts.sum(0), tiny))
+    planes.masked_fill_(nodata_mask, 0.0)
+    return _as_props(planes.to(torch.float64 if z.dtype == torch.float64
+                               else torch.float32))
+
+
+# (e1, e2, ac, af) facet table of the reference (the oracle's _DINF_FACETS)
+_FACETS = ((5, 4, 0, 1), (3, 4, 1, -1), (3, 2, 1, 1), (1, 2, 2, -1),
+           (1, 8, 2, 1), (7, 8, 3, -1), (7, 6, 3, 1), (5, 6, 4, -1))
+
+
+def _facets(z, nodata_mask, cellsize):
+    """Per facet ``(e1, e2, ac, af, ok, rr, ss, rmax)`` of the Tarboton
+    triangles around each cell: ``rr`` the in-facet angle clipped to
+    ``[0, rmax]``, ``ss`` its slope, ``ok`` whether either facet
+    neighbour is data.  Off-grid and nodata neighbours degrade as in the
+    reference (a missing e1 to the centre, a missing e2 to e1)."""
+    compute = z.to(torch.float64 if z.dtype == torch.float64
+                   else torch.float32)
+    d1 = torch.tensor(cellsize, dtype=torch.float32,
+                      device=z.device).to(compute.dtype)
+    rmax = torch.atan2(d1, d1)
+    diag = torch.sqrt(d1 * d1 + d1 * d1)
+    zed = torch.where(nodata_mask, torch.tensor(math.nan, dtype=compute.dtype,
+                                                device=z.device), compute)
+    for e1, e2, ac, af in _FACETS:
+        z1 = neighbor(zed, e1, math.nan)
+        z2 = neighbor(zed, e2, math.nan)
+        ok1, ok2 = ~torch.isnan(z1), ~torch.isnan(z2)
+        z1v = torch.where(ok1, z1, compute)
+        z2v = torch.where(ok2, z2, z1v)
+        s1 = (compute - z1v) / d1
+        s2 = (z1v - z2v) / d1
+        r = torch.atan2(s2, s1)
+        rr = torch.clamp(r, min=0.0).minimum(rmax)
+        ss = torch.where(r < 0.0, s1,
+                         torch.where(r > rmax, (compute - z2v) / diag,
+                                     torch.sqrt(s1 * s1 + s2 * s2)))
+        yield e1, e2, ac, af, ok1 | ok2, rr, ss, rmax
+
+
+def _dinf_impl(z, nodata_mask, cellsize):
+    """Tarboton (1997) D∞ angles: the steepest facet's direction, radians
+    counter-clockwise from East; -1 NO_FLOW, -2 nodata.  The first facet
+    wins ties (strict ``>``, as the oracle)."""
+    best_s = best_a = None
+    for e1, e2, ac, af, ok, rr, ss, _ in _facets(z, nodata_mask, cellsize):
+        if best_s is None:
+            best_s = torch.zeros_like(ss)
+            best_a = torch.full_like(ss, -1.0)
+        ss = torch.where(ok, ss, -math.inf)
+        ang = af * rr + ac * (math.pi / 2.0)
+        take = ss > best_s
+        best_a = torch.where(take, ang, best_a)
+        best_s = torch.where(take, ss, best_s)
+    # the reference's floor modulo (``%``), not fmod
+    out = torch.where(best_a == -1.0, best_a,
+                      torch.remainder(best_a, 2.0 * math.pi))
+    out = torch.where(best_s > 0.0, out, -1.0)
+    return torch.where(nodata_mask, -2.0, out)
+
+
+def _seibert_impl(z, nodata_mask, cellsize, exponent):
+    """Triangular multi-flow MD∞ (Seibert & McGlynn 2007): each facet with
+    a positive slope sends ``slope ** exponent``, split between its two
+    directions by the in-facet angle."""
+    shares = None
+    for e1, e2, ac, af, ok, rr, ss, rmax in _facets(z, nodata_mask,
+                                                    cellsize):
+        if shares is None:
+            shares = torch.zeros((8,) + tuple(ss.shape), dtype=ss.dtype,
+                                 device=ss.device)
+        zero = torch.zeros((), dtype=ss.dtype, device=ss.device)
+        weight = torch.where(ok & (ss > 0.0), ss ** exponent, zero)
+        frac2 = rr / rmax
+        shares[e1 - 1] += weight * (1.0 - frac2)
+        shares[e2 - 1] += weight * frac2
+    total = shares.sum(0)
+    zero = torch.zeros((), dtype=shares.dtype, device=shares.device)
+    tiny = torch.tensor(1e-30, dtype=shares.dtype, device=shares.device)
+    planes = torch.where(total > 0, shares / torch.maximum(total, tiny),
+                         zero)
+    return _as_props(torch.where(nodata_mask, zero, planes))
+
+
+def dinf_flowdirs(dem, no_data=None, cellsize=1.0, device="cuda"):
+    """Continuous flow angles, radians counter-clockwise from East
+    (Tarboton 1997); -1 NO_FLOW, -2 nodata.  ``dem``: a tensor (the work
+    runs where it lives) or an array (moved to ``device``)."""
+    z = as_tensor(dem, device)
+    return _dinf_impl(z, nodata_like(z, no_data), cellsize)
+
+
+#: D8 code at angle k·π/4: E, NE, N, NW, W, SW, S, SE
+OCTANT_DIRS = (5, 4, 3, 2, 1, 8, 7, 6)
+
+
+def octants_per_radian(a):
+    """``1 / (π/4)`` in ``a``'s dtype, a device scalar: angles become
+    octants by this product, which is what XLA makes of the reference's
+    division by the constant π/4 (a true division rounds some angles to
+    the other side of an octant edge)."""
+    quarter = np.asarray(math.pi / 4.0, dtype=str(a.dtype).removeprefix(
+        "torch."))
+    return torch.tensor(np.reciprocal(quarter), device=a.device)
+
+
+def proportions_from_dinf(angles):
+    """(H, W, 8) proportions of a D∞ angle raster: the flow splits between
+    the two D8 directions that bracket the angle."""
+    a = angles
+    q = a * octants_per_radian(a)
+    k = torch.remainder(torch.floor(q).long(), 8)
+    frac = q - torch.floor(q)
+    octants = torch.tensor(OCTANT_DIRS, device=a.device)
+    d_lo, d_hi = octants[k], octants[(k + 1) % 8]
+    flowing = a >= 0.0
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    lo = torch.where(flowing, 1.0 - frac, zero)
+    hi = torch.where(flowing, frac, zero)
+    planes = torch.stack([(d_lo == d).to(a.dtype) * lo
+                          + (d_hi == d).to(a.dtype) * hi
+                          for d in range(1, 9)])
+    return _as_props(planes)
+
+
+def proportions_from_d8(flowdirs):
+    """One-hot (H, W, 8) proportions of a D8 raster (NO_FLOW and nodata
+    send nothing)."""
+    fd = flowdirs
+    return _as_props(torch.stack([(fd == d).to(torch.float32)
+                                  for d in range(1, 9)]))
+
+
+def flow_proportions(dem, method="D8", no_data=None, exponent=None,
+                     cellsize=1.0, seed=0, device="cuda"):
+    """(H, W, 8) proportions of any metric, the counterpart of pyrichdem's
+    ``FlowProportions``.  ``dem``: a tensor (the work runs where it lives)
+    or an array (moved to ``device``).  ``seed`` is Rho8's, which is not
+    ported yet: its kernel (``pallas_stencils._rho8_kernel``) is next in
+    ROADMAP.md queue 2 (item 6), so ``"Rho8"``/``"Rho4"`` raise
+    ``NotImplementedError``."""
+    z = as_tensor(dem, device)
+    m = method.lower()
+    if m in ("d8", "ocallaghan", "d4"):
+        topo = "D4" if m == "d4" else "D8"
+        return proportions_from_d8(d8_flowdirs(z, no_data, topo, cellsize))
+    if m in ("rho8", "rho4"):
+        raise NotImplementedError(
+            f"{method}: Rho8 needs its kernel (pallas_stencils._rho8_kernel),"
+            " not yet ported; see ROADMAP.md queue 2, item 6")
+    if m in ("dinf", "tarboton"):
+        return proportions_from_dinf(dinf_flowdirs(z, no_data, cellsize))
+    mask = nodata_like(z, no_data)
+    if m == "quinn":
+        return _mfd_impl(z, mask, cellsize, 1.0)
+    if m == "freeman":
+        return _mfd_impl(z, mask, cellsize,
+                         1.1 if exponent is None else float(exponent))
+    if m == "holmgren":
+        if exponent is None:
+            raise ValueError("Holmgren requires an exponent")
+        return _mfd_impl(z, mask, cellsize, float(exponent))
+    if m in ("seibertmcglynn", "md_infinity", "mdinf"):
+        return _seibert_impl(z, mask, cellsize,
+                             1.0 if exponent is None else float(exponent))
+    raise ValueError(f"unknown flow metric: {method!r}")

@@ -1,0 +1,216 @@
+"""Multi-flow accumulation by Gauss–Seidel and scan-GS directional sweeps.
+
+Counterpart of ``richdem_tpu.ops.pallas_mfd`` (``mfd_accumulation_gs``,
+``_mfd_gs_impl``, ``_mfd_gs_impl_small``) and ``richdem_tpu.ops.pallas_scan``
+(``_mfd_scan_impl``, ``mfd_accumulation_scan``), and of their TPU kernels
+``_mfd_kernel``, ``_mfd_kernel_small`` and ``_mfd_scan_kernel``.  One sweep
+of ``A = w + PᵀA`` over plane-major proportions ``(8, H, W)`` takes the
+row before at new values, the row after at sweep-start values, and its own
+row by the in-row window of ``depth`` columns (:func:`scan_window`):
+
+* ``depth`` 1 — the E/W neighbours' sweep-start values (the GS sweeps,
+  ``_mfd_kernel`` and ``_mfd_kernel_small``);
+* ``depth`` d ≥ 2 — the in-row E and W chains solved by affine prefix scans
+  over the next power of two ≥ d columns, closed with sweep-start values
+  (``_mfd_scan_kernel``);
+* ``depth`` 0 — the scans over the whole column tile.
+
+Every depth reaches the same fixpoint; depth trades scan steps per sweep
+against rotations.  A rotation is down, up, transposed down, transposed up
+(the reference's ``rrcc`` order), the transposed sweeps reading the plane
+stack transposed and permuted (:func:`transpose_planes`).  A CUDA tensor
+goes through ``csrc/mfd_sweep.cu``; a CPU tensor through
+:func:`mfd_sweep_plain`.  Convergence is equality over a whole rotation, and
+a non-converged result raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
+from richdem_tpu_torch.ops.fill import _require_converged
+from richdem_tpu_torch.ops.stencil import as_tensor
+from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
+                                          accumulation_rotations,
+                                          accumulation_trios, pad_row,
+                                          seam_columns)
+
+__all__ = ["MFD_SWEEP", "MFD_DEPTH", "scan_window", "mfd_sweep",
+           "mfd_sweep_plain", "transpose_planes", "mfd_accumulation_info",
+           "mfd_accumulation"]
+
+_P = ctypes.c_void_p
+MFD_SWEEP = Kernel("mfd_sweep", "rd_mfd_sweep",
+                   [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, _P])
+
+#: The in-row scan depth of multi-flow accumulation, chosen on an H100
+#: (PERF.md: rotations and time per step at depth 1, 8, 32 and 0).
+MFD_DEPTH = 8
+
+
+def scan_window(depth: int, tile: int = SWEEP_TILE) -> int:
+    """Columns of the in-row window at ``depth``: 1 at depth 1 (the GS
+    sweep), the next power of two ≥ ``depth`` (at most ``tile``) above,
+    ``tile`` at depth 0 (the whole tile).  The reference's ``_win_lim``
+    with the row ending at the tile edge."""
+    if depth < 0:
+        raise ValueError(f"depth must be >= 0, not {depth}")
+    if depth == 0:
+        return tile
+    return min(1 << (depth - 1).bit_length(), tile)
+
+
+def mfd_sweep_plain(acc_in, w, planes, reverse, depth, tile=SWEEP_TILE):
+    """Plain version of the sweep kernels (``csrc/flow_sweep.cuh``): a loop
+    over rows in sweep order, vectorised across columns, with the kernel's
+    grouping of every sum and its Hillis–Steele doubling order.
+
+    ``planes``: (8, H, W) float32 taps, plane d - 1 toward direction d.
+    ``tile``: width of the kernel's column tiles.  Across a tile edge the
+    row before is read at its sweep-start values and the in-row windows
+    close with the neighbour column's sweep-start value, as the kernel
+    does, so one sweep is bitwise the kernel's."""
+    h, wd = acc_in.shape
+    dev = acc_in.device
+    lim = scan_window(depth, tile)
+    (ns, nw, ne), (os_, ow, oe) = accumulation_trios(reverse)
+    out = torch.empty_like(acc_in)
+    zero = torch.zeros((), dtype=acc_in.dtype, device=dev)
+    one = torch.ones((), dtype=acc_in.dtype, device=dev)
+    lseam, rseam = seam_columns(wd, tile, dev)
+    col = torch.arange(wd, device=dev)
+    first = col - col % tile                          # tile's first column
+    last = torch.clamp(first + tile, max=wd) - 1      # and its last
+    left, right = col - first, last - col             # room in the tile
+    # padded-row positions of the values that close the windows
+    close_e = torch.maximum(first - 1, col - lim) + 1
+    close_w = torch.minimum(last + 1, col + lim) + 1
+
+    def shift(x, d, fill, east):
+        """x[j - d] (E chain) or x[j + d] (W chain) inside j's tile."""
+        if east:
+            return torch.where(left >= d, F.pad(x[:-d], (d, 0)), fill)
+        return torch.where(right >= d, F.pad(x[d:], (0, d)), fill)
+
+    rows = list(range(h - 1, -1, -1) if reverse else range(h))
+    step = -1 if reverse else 1
+    off_grid = torch.zeros(8, wd + 2, dtype=acc_in.dtype, device=dev)
+    pa, pt = torch.zeros(wd + 2, dtype=acc_in.dtype, device=dev), off_grid
+    for k, r in enumerate(rows):
+        la, lt = pad_row(acc_in[r]), pad_row(planes[:, r])
+        rn = r + step
+        if 0 <= rn < h:
+            na, nt = pad_row(acc_in[rn]), pad_row(planes[:, rn])
+        else:
+            na, nt = torch.zeros_like(la), off_grid
+        west, east = pa[:-2], pa[2:]
+        if k > 0 and lseam.numel():
+            old = pad_row(acc_in[rows[k - 1]])
+            west, east = west.clone(), east.clone()
+            west[lseam] = old[lseam]       # old[c - 1] in padded coords
+            east[rseam] = old[rseam + 2]   # old[c + 1]
+        newc = (pa[1:-1] * pt[ns - 1, 1:-1] + west * pt[nw - 1, :-2])
+        newc = newc + east * pt[ne - 1, 2:]
+        oldb = (na[1:-1] * nt[os_ - 1, 1:-1] + na[:-2] * nt[ow - 1, :-2])
+        oldb = oldb + na[2:] * nt[oe - 1, 2:]
+        base = (w[r] + newc) + oldb
+        gate_e, gate_w = lt[4, :-2], lt[0, 2:]  # j-1 toward E, j+1 toward W
+        if lim == 1:
+            new = (base + gate_e * la[:-2]) + gate_w * la[2:]
+        else:
+            ea, eb, wa, wb = gate_e, base, gate_w, base
+            d = 1
+            while d < min(lim, wd):  # past the row, steps change nothing
+                eb, ea = (ea * shift(eb, d, zero, True) + eb,
+                          ea * shift(ea, d, one, True))
+                wb, wa = (wa * shift(wb, d, zero, False) + wb,
+                          wa * shift(wa, d, one, False))
+                d *= 2
+            new = ((eb + ea * la[close_e]) + (wb + wa * la[close_w])) - base
+        out[r] = new
+        pa, pt = pad_row(new), lt
+    return out
+
+
+def mfd_sweep(acc_in, w, planes, reverse, depth):
+    """One directional multi-flow sweep (down, or up if ``reverse``), out of
+    place.  A CUDA tensor launches ``csrc/mfd_sweep.cu`` (raising if it
+    cannot be built or launched); a CPU tensor runs the plain version."""
+    if not acc_in.is_cuda:
+        return mfd_sweep_plain(acc_in, w, planes, reverse, depth)
+    h, wd = acc_in.shape
+    for x, shape, name in ((acc_in, (h, wd), "acc_in"), (w, (h, wd), "w"),
+                           (planes, (8, h, wd), "planes")):
+        if (x.dtype != torch.float32 or not x.is_contiguous()
+                or tuple(x.shape) != shape or x.device != acc_in.device):
+            raise ValueError(f"{name}: expected a contiguous float32 "
+                             f"tensor {shape} on acc_in's device")
+    out = torch.empty_like(acc_in)
+    if h == 0 or wd == 0:
+        return out
+    MFD_SWEEP.launch(acc_in.data_ptr(), w.data_ptr(), planes.data_ptr(),
+                     out.data_ptr(), h, wd, int(bool(reverse)),
+                     scan_window(depth), stream_handle(acc_in.device))
+    return out
+
+
+def transpose_planes(planes):
+    """The plane stack of the transposed grid: plane d - 1 is plane
+    ``PERM_TRANSPOSE[d] - 1`` transposed (the reference's
+    ``_transpose_props_small``), built one plane at a time."""
+    _, h, wd = planes.shape
+    out = torch.empty((8, wd, h), dtype=planes.dtype, device=planes.device)
+    for d in range(1, 9):
+        out[d - 1] = planes[int(PERM_TRANSPOSE[d]) - 1].t()
+    return out
+
+
+def mfd_accumulation_info(planes, weights, max_rotations=512,
+                          depth=MFD_DEPTH, sweep=mfd_sweep):
+    """Rotations from ``A = w`` over plane-major proportions ``(8, H, W)``
+    until a rotation changes nothing; returns ``(accum, rotations,
+    converged)`` without raising."""
+    planes = planes.to(torch.float32).contiguous()
+    w = weights.to(torch.float32).contiguous()
+    planes_t = transpose_planes(planes)
+    w_t = w.t().contiguous()
+    return accumulation_rotations(
+        w, lambda a, rev: sweep(a, w, planes, rev, depth),
+        lambda a, rev: sweep(a, w_t, planes_t, rev, depth), max_rotations)
+
+
+def mfd_accumulation(props, weights=None, no_data_mask=None,
+                     max_rotations=512, return_info=False, depth=MFD_DEPTH,
+                     device="cuda"):
+    """Weighted upstream accumulation from ``(H, W, 8)`` proportions, exact
+    at the fixpoint (the topological queue's result); raises if
+    ``max_rotations`` rotations do not reach it.  Zero weight and zero
+    output at nodata.  ``return_info`` adds ``(rotations, converged)``.
+
+    ``props``: a tensor (the work runs where it lives) or an array (moved
+    to ``device``, as are array weights and masks).  A plane-major stack
+    seen as ``(H, W, 8)``, as :func:`~richdem_tpu_torch.ops.flowdirs.
+    flow_proportions` returns it, is read without a copy."""
+    props = as_tensor(props, device)
+    planes = props.permute(2, 0, 1).to(torch.float32).contiguous()
+    h, wd = planes.shape[1:]
+    if weights is None:
+        weights = torch.ones((h, wd), dtype=torch.float32,
+                             device=planes.device)
+    weights = as_tensor(weights, planes.device).to(torch.float32)
+    if no_data_mask is not None:
+        no_data_mask = as_tensor(no_data_mask, planes.device)
+        weights = torch.where(no_data_mask, 0.0, weights)
+    acc, rotations, done = mfd_accumulation_info(planes, weights,
+                                                 max_rotations, depth)
+    _require_converged(done, "multi-flow accumulation", max_rotations)
+    if no_data_mask is not None:
+        acc = torch.where(no_data_mask, 0.0, acc)
+    if return_info:
+        return acc, rotations, done
+    return acc

@@ -26,19 +26,28 @@ where an edge n → c is admissible when both cells are data at one
 elevation and their flag bytes pass the mode's test (:func:`allowed`).
 Distances are small integers, so every engine and every sweep order reaches
 the same answer exactly.
+
+Accumulation ``A = w + PᵀA`` (D8, D∞, multi-flow) rotates through the same
+four orientations (:func:`accumulation_rotations`); its transposed sweeps
+read directions through :data:`PERM_TRANSPOSE`.  Float sums regroup from
+one orientation to the next, so it converges on equality over a whole
+rotation, never on a per-sweep flag.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import SWEEP_TILE
 
 __all__ = ["BIG", "ZBIG", "DIST_MODES", "F_DATA", "F_NOFLOW", "F_INFLAT",
-           "fill_sweep_plain", "fill_fixpoint_core", "seam_columns",
-           "allowed", "dist_sweep_plain", "dist_context",
-           "dist_fixpoint_core"]
+           "PERM_TRANSPOSE", "fill_sweep_plain", "fill_fixpoint_core",
+           "seam_columns", "allowed", "dist_sweep_plain", "dist_context",
+           "dist_fixpoint_core", "accumulation_trios", "pad_row",
+           "accumulation_rotations"]
 
 #: Finite stand-in for infinity (fits comfortably in float32).
 BIG = 1.0e30
@@ -53,6 +62,23 @@ F_DATA, F_NOFLOW, F_INFLAT = 1, 2, 4
 
 #: Distance modes, in the order of the kernel's ``mode`` argument.
 DIST_MODES = ("member", "towards", "away", "maxd")
+
+
+def _transpose_permutation() -> np.ndarray:
+    """Code of each direction in the transposed grid: (dy, dx) → (dx, dy).
+    The reference's ``ops/accum._PERM_TRANSPOSE``, derived from the pinned
+    topology tables instead of copied."""
+    perm = np.zeros(9, np.int8)
+    for d in range(1, 9):
+        for e in range(1, 9):
+            if (topology.DX[e] == topology.DY[d]
+                    and topology.DY[e] == topology.DX[d]):
+                perm[d] = e
+    return perm
+
+
+#: code permutation under transposition (0 stays NO_FLOW)
+PERM_TRANSPOSE = _transpose_permutation()
 
 
 def seam_columns(width: int, tile: int, device):
@@ -238,3 +264,41 @@ def dist_fixpoint_core(w0, ctx, mode, step, max_iters, sweep):
             converged = True
             break
     return w, iters, converged
+
+
+def accumulation_trios(reverse):
+    """Directions an accumulation sweep reads on its new side (the row
+    before in sweep order) and on its old side (the row after): straight,
+    from the west source, from the east source."""
+    down, up = (7, 6, 8), (3, 4, 2)
+    return (up, down) if reverse else (down, up)
+
+
+def pad_row(x):
+    """``x`` with one zero column on either side of its last axis."""
+    return F.pad(x[None], (1, 1))[0]
+
+
+def accumulation_rotations(w, row_sweep, col_sweep, max_rotations):
+    """Rotations of accumulation sweeps from ``A = w`` until one changes
+    nothing; returns ``(acc, rotations, converged)`` without raising.
+
+    ``row_sweep(acc, reverse)`` sweeps the (H, W) raster down or up;
+    ``col_sweep(acc_t, reverse)`` sweeps its (W, H) transpose, whose
+    fields the caller has transposed (and permuted) once.  A rotation is
+    down, up, transposed down, transposed up.  ``max_rotations`` bounds the
+    loop, never the result."""
+    acc = w
+    rotations, converged = 0, False
+    while rotations < max_rotations:
+        new = row_sweep(acc, False)
+        new = row_sweep(new, True)
+        t = col_sweep(new.t().contiguous(), False)
+        t = col_sweep(t, True)
+        new = t.t().contiguous()
+        rotations += 1
+        converged = torch.equal(new, acc)
+        acc = new
+        if converged:
+            break
+    return acc, rotations, converged

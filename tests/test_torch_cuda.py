@@ -1,4 +1,4 @@
-"""The five CUDA kernels ↔ their plain versions, on a CUDA card.
+"""The seven CUDA kernels ↔ their plain versions, on a CUDA card.
 
 Marked ``gpu``: the kernels have no CPU mode, so without a card and
 ``nvcc`` these tests skip.  On a card, run
@@ -6,7 +6,9 @@ Marked ``gpu``: the kernels have no CPU mode, so without a card and
 1024-column tile put seams inside the grid; a single sweep must still be
 bitwise the plain version's (which reads seams the same way).  The terrain
 kernel's atan attributes are held to rtol 1e-6 (the kernel and torch may
-call different atan implementations), the others bitwise.
+call different atan implementations), the others bitwise.  The D∞ and
+multi-flow sweeps are bitwise at 1000×1100 in every depth mode (1, a
+window, the whole tile), down and transposed up.
 """
 
 import numpy as np
@@ -15,7 +17,8 @@ import torch
 
 from richdem_tpu_torch import _build, synth_np
 from richdem_tpu_torch import synth as tsynth
-from richdem_tpu_torch.ops import accum, fill, flats, flowdirs, sweeps, terrain
+from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs, mfd,
+                                   sweeps, terrain)
 
 torch.set_num_threads(1)
 
@@ -173,3 +176,61 @@ def test_terrain_kernel_matches_plain(dev, shape, attrib):
         torch.testing.assert_close(got[ok], ref[ok], rtol=1e-6, atol=0)
     else:
         assert torch.equal(got[ok], ref[ok])
+
+
+@pytest.fixture(scope="module")
+def flow_fields(dev):
+    """The D∞ field and the Quinn planes of an ε-filled 1000×1100 Perlin
+    DEM with nodata holes, each with its transposed form."""
+    z, mask = _dem((1000, 1100), dev, seed=6)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=1e-2)
+    assert done
+    ang = torch.where(mask, -2.0, flowdirs.dinf_flowdirs(filled))
+    code, p = dinf.dinf_two_tap(ang)
+    cq, pq = dinf.unpack_two_tap(dinf.pack_two_tap(code, p))
+    v = dinf.pack_two_tap(cq, pq).contiguous()
+    v_t = dinf.pack_two_tap(*dinf.transpose_two_tap(cq, pq)).contiguous()
+    props = flowdirs.flow_proportions(filled, "Quinn")
+    planes = torch.where(mask, 0.0, props.permute(2, 0, 1)).contiguous()
+    weights = torch.where(mask, 0.0, torch.ones_like(z))
+    return {"dinf": (dinf.DINF_SWEEP, dinf.dinf_sweep,
+                     dinf.dinf_sweep_plain, v, v_t),
+            "mfd": (mfd.MFD_SWEEP, mfd.mfd_sweep, mfd.mfd_sweep_plain,
+                    planes, mfd.transpose_planes(planes)),
+            "weights": weights}
+
+
+@pytest.mark.parametrize("depth", [1, 8, 0])
+@pytest.mark.parametrize("kind", ["dinf", "mfd"])
+def test_flow_sweep_kernels_match_plain(dev, flow_fields, kind, depth):
+    kernel, sweep, plain, field, field_t = flow_fields[kind]
+    w = flow_fields["weights"]
+    rng = np.random.default_rng(depth)
+    acc = torch.from_numpy(rng.uniform(1.0, 50.0, tuple(w.shape))
+                           .astype(np.float32)).to(dev)
+    before = kernel.launches
+    ak = sweep(acc, w, field, False, depth)
+    ap = plain(acc, w, field, False, depth)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(ak, ap)
+    at, w_t = ak.t().contiguous(), w.t().contiguous()
+    assert torch.equal(sweep(at, w_t, field_t, True, depth),
+                       plain(at, w_t, field_t, True, depth))
+
+
+@pytest.mark.parametrize("kind", ["dinf", "mfd"])
+def test_flow_accumulation_kernels_match_plain(dev, flow_fields, kind):
+    """Whole fixpoints, kernel and plain rotations, bitwise (the default
+    depth)."""
+    _, sweep, plain, field, _ = flow_fields[kind]
+    w = flow_fields["weights"]
+    if kind == "dinf":
+        info = dinf.dinf_accumulation_info
+        args = dinf.unpack_two_tap(field)
+    else:
+        info, args = mfd.mfd_accumulation_info, (field,)
+    got, rk, dk = info(*args, w)
+    ref, rp, dp = info(*args, w, sweep=plain)
+    assert dk and dp and rk == rp
+    assert torch.equal(got, ref)

@@ -22,13 +22,14 @@ import torch
 import richdem_tpu_torch as rt
 from richdem_tpu_torch import _build, convert
 from richdem_tpu_torch import synth as tsynth
-from richdem_tpu_torch.ops import accum, fill, flats, flowdirs, terrain
+from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs, mfd,
+                                   terrain)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP, flats.DIST_SWEEP,
-           terrain.TERRAIN]
+           terrain.TERRAIN, dinf.DINF_SWEEP, mfd.MFD_SWEEP]
 
 _ALONE = """
 import os, shutil, sys
@@ -47,9 +48,17 @@ fd = rt.resolve_flats(filled, d8_flowdirs(filled))
 assert fd.device.type == "cpu" and int((fd[1:-1, 1:-1] == 0).sum()) == 0
 slope = rt.terrain_attribute(dem, "slope_radians", device="cpu")
 assert bool(torch.isfinite(slope).all())
+ang = rt.dinf_flowdirs(filled)
+acc = rt.dinf_accumulation_from_angles(ang)
+assert bool(torch.isfinite(rt.twi(acc, slope)).all())
+props = rt.flow_proportions(filled, "Quinn")
+assert float(rt.flow_accumulation_from_props(props).sum()) > 0
 if shutil.which("g++"):
     want = native.fill(dem.astype(np.float64))
     assert np.array_equal(want, filled.numpy().astype(np.float64))
+    qa = native.accum_props(props.numpy().astype(np.float64))
+    assert np.allclose(qa, rt.flow_accumulation_from_props(props).numpy(),
+                       rtol=2e-5)
     assert os.path.exists(native._LIB)
     print("native ok")
 reference = os.path.join(sys.argv[1], "richdem_tpu") + os.sep
@@ -65,8 +74,9 @@ print("ok")
 
 def test_port_runs_alone_without_jax(tmp_path):
     """A copy of the package with no ``richdem_tpu/`` beside it: import, the
-    pipeline, flat resolution, a terrain attribute and (where g++ exists)
-    the port's own native engine, which builds into the copy."""
+    pipeline, flat resolution, a terrain attribute, D∞ and Quinn
+    accumulation and (where g++ exists) the port's own native engine, which
+    builds into the copy."""
     shutil.copytree(os.path.join(REPO, "richdem_tpu_torch"),
                     tmp_path / "richdem_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
@@ -104,6 +114,7 @@ def test_no_port_file_names_the_reference_package():
 def _entry_points():
     dem = np.random.default_rng(0).random((12, 14)).astype(np.float32)
     fd = np.zeros(dem.shape, np.int8)
+    props = np.zeros(dem.shape + (8,), np.float32)
     return {
         "from_numpy": lambda: convert.from_numpy(dem)[0],
         "perlin_dem": lambda: tsynth.perlin_dem(12, 14),
@@ -116,6 +127,15 @@ def _entry_points():
         "flat_mask_and_labels_device":
             lambda: rt.flat_mask_and_labels_device(dem, fd)[0],
         "terrain_attribute": lambda: rt.terrain_attribute(dem, "aspect"),
+        "dinf_flowdirs": lambda: rt.dinf_flowdirs(dem),
+        "flow_proportions": lambda: rt.flow_proportions(dem, "Quinn"),
+        "flow_accumulation_from_props":
+            lambda: rt.flow_accumulation_from_props(props),
+        "dinf_accumulation_from_angles":
+            lambda: rt.dinf_accumulation_from_angles(dem),
+        "dinf_accumulation": lambda: dinf.dinf_accumulation(fd, dem),
+        "d8_accumulation_doubling":
+            lambda: accum.d8_accumulation_doubling(fd),
     }
 
 
@@ -153,5 +173,7 @@ def test_cpu_tensors_take_the_plain_version():
     accum.d8_accumulation(fd)
     flats.resolve_flats(torch.round(z * 4) / 4, fd)
     terrain.terrain_attribute(z, "curvature")
+    accum.dinf_accumulation_from_angles(flowdirs.dinf_flowdirs(f))
+    accum.flow_accumulation_from_props(flowdirs.flow_proportions(f, "Quinn"))
     after = [k.launches for k in KERNELS]
     assert after == before

@@ -4,16 +4,27 @@ PyTorch port, traced with ``torch.profiler`` on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
-    python3 tools/torch_profile.py OUT_DIR
+    python3 tools/torch_profile.py OUT_DIR [PATH ...]
 
-Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up step:
+PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
+``quinn_mfd`` and ``depths`` (all when none is named).  Paths, at 10240² on
+a Perlin DEM (seed 0), each after one warm-up step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
   config 3, ``bench.py``'s default);
 * ``config2`` — ``auto_epsilon`` → ε-fill → D8 → ``resolve_flats``
   (BASELINE.json config 2, ``bench.py``'s ``fill_flats``);
 * ``flats``   — ``resolve_flats`` of the main path's ε = 0 output (flat
-  lakes).
+  lakes);
+* ``dinf_twi``, ``quinn_mfd`` — BASELINE.json config 4, ``bench.py``'s
+  configs of those names (``chip_smoke.dinf_twi_step``,
+  ``quinn_mfd_step``).
+
+``depths`` runs no trace: at 4096² (Perlin seed 0, ε = 1e-2 fill) it times
+the D∞ and Quinn accumulations at in-row scan depths 1, 8, 32 and 0 with
+CUDA events (one warm-up call, then the mean of three) and prints one JSON
+line per metric and depth with the rotations and the milliseconds per call,
+from which the port's default depths are chosen.
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
@@ -41,7 +52,12 @@ MAIN = 10240
 PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
                 "accum_sweep_kernel": "accum_sweep",
                 "dist_sweep_kernel": "dist_sweep",
-                "terrain_kernel": "terrain"}
+                "terrain_kernel": "terrain",
+                # flow_sweep_kernel, instantiated per field
+                "DinfField": "dinf_sweep", "MfdField": "mfd_sweep"}
+PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "depths")
+DEPTH_SIZE = 4096
+DEPTHS = (1, 8, 32, 0)
 
 
 def _group(name):
@@ -97,14 +113,49 @@ def trace(name, fn, out_dir):
                             for k, v in top[:14]}}
 
 
+def depth_sweep(dev, card):
+    """Rotations and milliseconds per accumulation call at each depth."""
+    import torch
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import accum, dinf, fill, flowdirs
+
+    z = tsynth.perlin_dem(DEPTH_SIZE, DEPTH_SIZE, seed=0, device=dev)
+    filled, _, done = fill.fill_depressions_info(z, eps=1e-2, max_iters=256)
+    if not done:
+        raise RuntimeError("fill did not converge")
+    code, p = dinf.dinf_two_tap(flowdirs.dinf_flowdirs(filled))
+    props = flowdirs.flow_proportions(filled, "Quinn")
+    runs = {"dinf": lambda d: dinf.dinf_accumulation(
+                code, p, depth=d, return_info=True),
+            "quinn": lambda d: accum.flow_accumulation_from_props(
+                props, depth=d, return_info=True)}
+    for metric, run in runs.items():
+        for depth in DEPTHS:
+            _, rotations, _ = run(depth)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                run(depth)
+            end.record()
+            torch.cuda.synchronize()
+            print(json.dumps({"depths": metric, "size": DEPTH_SIZE,
+                              "depth": depth, "rotations": rotations,
+                              "ms": start.elapsed_time(end) / 3,
+                              "card": card}), flush=True)
+
+
 def main():
     import torch
 
-    if len(sys.argv) != 2:
-        raise SystemExit(f"usage: {sys.argv[0]} OUT_DIR")
+    if len(sys.argv) < 2 or not set(sys.argv[2:]) <= set(PATHS):
+        raise SystemExit(f"usage: {sys.argv[0]} OUT_DIR [PATH ...], PATH "
+                         f"in {PATHS}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile needs one")
     out_dir = sys.argv[1]
+    paths = sys.argv[2:] or PATHS
     os.makedirs(out_dir, exist_ok=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,6 +163,7 @@ def main():
         timeout=60).stdout.strip()
     print(card, flush=True)
 
+    from chip_smoke import dinf_twi_step, quinn_mfd_step
     from richdem_tpu_torch import (auto_epsilon, make_pipeline,
                                    resolve_flats)
     from richdem_tpu_torch import synth as tsynth
@@ -132,13 +184,16 @@ def main():
         fd = flowdirs.d8_core(filled, nd)
         return resolve_flats(filled, fd)
 
-    out = step(z)
-    results = [trace("main", lambda: step(z), out_dir),
-               trace("config2", config2, out_dir),
-               trace("flats", lambda: resolve_flats(out["filled"],
-                                                    out["flowdirs"]),
-                     out_dir)]
-    for res in results:
+    out = step(z) if "flats" in paths else None
+    fns = {"main": lambda: step(z), "config2": config2,
+           "flats": lambda: resolve_flats(out["filled"], out["flowdirs"]),
+           "dinf_twi": lambda: dinf_twi_step(z),
+           "quinn_mfd": lambda: quinn_mfd_step(z)}
+    for name in paths:
+        if name == "depths":
+            depth_sweep(dev, card)
+            continue
+        res = trace(name, fns[name], out_dir)
         res["card"] = card
         print(json.dumps(res), flush=True)
 
