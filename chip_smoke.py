@@ -9,13 +9,16 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 Phases, one line each (any failure raises: non-zero exit, no final line):
 
 1. device — the card's ``name, power.limit`` from nvidia-smi;
-2. build — compiles the seven kernels from ``richdem_tpu_torch/csrc`` and
+2. build — compiles the ten kernels from ``richdem_tpu_torch/csrc`` and
    the port's native engine, all at once (or loads them when the libraries
    are newer than the sources);
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card, on a ragged 1000×1100 Perlin DEM with nodata holes (the distance
    sweep in every mode, the terrain kernel for all 8 attributes, the D∞ and
-   multi-flow sweeps at depths 1, 8 and 0, down and transposed up);
+   multi-flow sweeps at depths 1, 8 and 0, down and transposed up, Rho8
+   and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
+   transposed up and their fixpoints); Rho8's diagonal share on 256²
+   planes at θ = 10° and 30° within 0.015 of θ/45;
 4. native gates — fill bit-exact against the port's copy of the
    single-core C++ engine at 2048×2176 and 4096×4224 (multigrid warm
    start), then D8 and flat resolution of those ε = 0 fills bitwise against
@@ -40,10 +43,21 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    slope → TWI, and ε = 1e-2 fill → Quinn proportions → multi-flow
    accumulation; each converged, mass-conserving, its kernels launched;
    three timed steps, the peak memory, the rotations and the depth;
-10. kernels at the paths' shapes — each kernel against its plain version at
+10. d8_methods at 10240²: config 2's step, then watershed labels,
+   Strahler order, D8 accumulation, and the upslope cells of the 64
+   interior cells of largest accumulation; labels and upslope mask bitwise
+   equal to pointer doubling, labels constant along every flow path,
+   Strahler order satisfying its defining equation at every cell (and
+   bitwise equal to the Jacobi fixpoint at 2048×2176); three timed steps,
+   the peak memory and the rotations of each fixpoint;
+11. rho8 at 10240²: ε-fill → ``rho8_flowdirs(seed=0)`` →
+   ``d8_accumulation`` (pyrichdem's ``FlowAccumulation(method="Rho8")``);
+   codes sound, mass conserved exactly (the native engine's float64
+   accumulation of the codes); three timed steps and the peak memory;
+12. kernels at the paths' shapes — each kernel against its plain version at
    10240² (fill also at the 1280² multigrid coarse grid, fill,
-   accumulation, distance, D∞ and multi-flow sweeps also transposed), then
-   one call of each timed beside its bound.
+   accumulation, distance, D∞, multi-flow, resolve and Strahler sweeps also
+   transposed), then one call of each timed beside its bound.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the per-kernel JSON record; the last
@@ -68,8 +82,14 @@ RAGGED = (1000, 1100)  # kernel vs plain, seams and ragged edges
 #: native gates: (shape, seed, pits) of the depression DEMs
 NATIVE_GATES = (((2048, 2176), 9, 24), ((4096, 4224), 21, 60))
 
+GAUGES = 64  # upslope seeds of the d8_methods path
+JACOBI_SHAPE = (2048, 2176)  # Strahler order against the Jacobi fixpoint
+THETAS = (10.0, 30.0)  # Rho8's unbiasedness planes, degrees
+RHO8_SEEDS = (0, 7, -3)
+
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-#: bandwidth and float32 outside the tensor cores.
+#: bandwidth and float32 outside the tensor cores (integer operations are
+#: counted against the same rate).
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
 
@@ -84,10 +104,20 @@ F32_FLOPS_S = 67e12
 #:               8 taps (compare, select), 8 multiplies, 8 adds
 #:   mfd_sweep   acc, w, 8 planes in, acc out (4+4+32+4); 8 multiplies and
 #:               8 adds, 3 doubling steps of 2 chains (3 each), closure 6
-#: Bytes bound every one of them on an H100.
+#:   rho8        z, mask in, code out (4+1+1); Philox4x32-10 (10 rounds of
+#:               2 multiplies, 2 high multiplies, 4 xors, 2 key adds),
+#:               u and the distance 6, tanf about 20, 8 × (sub, div,
+#:               compare, select): 100 + 26 + 32
+#:   resolve_sweep      value, code in, value out (4+1+4); pin test, code
+#:               decode, one select
+#:   strahler_sweep     order, code in, order out (4+1+4); 8 compares and
+#:               selects, 7 max, 8 × (compare, and, add), 3 for the update
+#:               and 2 for max(old, upd)
+#: Bytes bound all but rho8 on an H100; operations bound rho8.
 COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
         "dist_sweep": (13, 9), "terrain": (9, 40), "dinf_sweep": (16, 36),
-        "mfd_sweep": (44, 40)}
+        "mfd_sweep": (44, 40), "rho8": (6, 158), "resolve_sweep": (9, 4),
+        "strahler_sweep": (9, 52)}
 
 #: The TPU kernel each CUDA kernel replaces (file:line of the body), and
 #: the other TPU kernels it covers where there are any (a list where there
@@ -106,11 +136,16 @@ REPLACES = {
     "mfd_sweep": ("richdem_tpu/ops/pallas_scan.py:515",
                   ["richdem_tpu/ops/pallas_mfd.py:49",
                    "richdem_tpu/ops/pallas_mfd.py:290"]),
+    "rho8": ("richdem_tpu/ops/pallas_stencils.py:119", None),
+    "resolve_sweep": ("richdem_tpu/ops/pallas_folded.py:606", None),
+    "strahler_sweep": ("richdem_tpu/ops/pallas_folded.py:729", None),
 }
 #: The path whose launch counts each kernel's record reports.
 PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "dist_sweep": "config2", "terrain": "terrain",
-           "dinf_sweep": "dinf_twi", "mfd_sweep": "quinn_mfd"}
+           "dinf_sweep": "dinf_twi", "mfd_sweep": "quinn_mfd",
+           "rho8": "rho8", "resolve_sweep": "d8_methods",
+           "strahler_sweep": "d8_methods"}
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
 
@@ -321,6 +356,81 @@ def absorbed_mass(acc, props):
     return float((acc.double() * (1.0 - stay)).sum())
 
 
+def succ_sweep_pair(name, v0, code, code_t, err, what):
+    """A down sweep, then a transposed up sweep of its result, of the
+    resolve or Strahler kernel and of its plain version, held bitwise."""
+    from richdem_tpu_torch.ops import successor
+
+    kern, plain = {
+        "resolve_sweep": (successor.resolve_sweep,
+                          successor.resolve_sweep_plain),
+        "strahler_sweep": (successor.strahler_sweep,
+                           successor.strahler_sweep_plain)}[name]
+    vk = kern(v0, code, False)
+    bitwise(name, ((vk, plain(v0, code, False)),), err, f"{what}, down")
+    vt = vk.t().contiguous()
+    bitwise(name, ((kern(vt, code_t, True), plain(vt, code_t, True)),), err,
+            f"{what}, transposed up")
+
+
+def resolve_starts(fd, seeds):
+    """(what, effective codes, init, pinned) of the two successor resolves:
+    watershed labels and the upslope cells of ``seeds``."""
+    import torch
+    from richdem_tpu_torch.ops import successor
+
+    fd_eff = successor.effective_codes(fd)
+    pinned = fd_eff == 0
+    idx = torch.arange(fd.numel(), dtype=torch.int32,
+                       device=fd.device).view(fd.shape)
+    return (("watersheds", fd_eff, torch.where(pinned, idx, -1), pinned),
+            ("upslope", fd_eff, seeds.to(torch.int32), seeds | pinned))
+
+
+def check_codes(name, codes, mask):
+    """Codes in 0..8 on data, -1 exactly at nodata, and none pointing into
+    nodata or off the grid."""
+    import torch
+    from richdem_tpu_torch.ops import successor
+
+    if not torch.equal(codes == -1, mask):
+        raise AssertionError(f"{name}: -1 is not exactly the nodata mask")
+    data = codes[~mask]
+    if not bool(((data >= 0) & (data <= 8)).all()):
+        raise AssertionError(f"{name}: a data cell's code is out of 0..8")
+    succ = successor.successor_table(codes)
+    flows = (codes > 0).reshape(-1)
+    if bool(mask.reshape(-1)[succ][flows].any()):
+        raise AssertionError(f"{name}: a code points into nodata")
+    if not torch.equal(successor.effective_codes(codes),
+                       codes.clamp(min=0)):
+        raise AssertionError(f"{name}: a code points off the grid")
+
+
+def rho8_planes(dev):
+    """Rho8 through its kernel on 256² planes whose aspect lies θ past
+    East toward South: the SE diagonal must win in a share within 0.015 of
+    θ/45 (tests/test_pallas.py's hardware check)."""
+    import torch
+    import richdem_tpu_torch as rt
+
+    y, x = torch.meshgrid(torch.arange(256.0, device=dev),
+                          torch.arange(256.0, device=dev), indexing="ij")
+    shares = {}
+    for theta in THETAS:
+        th = np.radians(theta)
+        z = -(float(np.cos(th)) * x + float(np.sin(th)) * y)
+        inner = rt.rho8_flowdirs(z, seed=3)[2:-2, 2:-2]
+        if not bool(((inner == 5) | (inner == 6)).all()):
+            raise AssertionError(f"Rho8 plane {theta}°: codes other than "
+                                 "E and SE")
+        shares[theta] = float((inner == 6).float().mean())
+        if abs(shares[theta] - theta / 45.0) >= 0.015:
+            raise AssertionError(f"Rho8 plane {theta}°: diagonal share "
+                                 f"{shares[theta]} vs {theta / 45.0}")
+    return shares
+
+
 def run_path(name, kernels, needed, fn):
     """Run one path with every launch count set to 0 just before it; read
     the counts just after and fail unless each of ``needed`` launched."""
@@ -404,7 +514,8 @@ def _ragged_dem(dev):
 
 def phase_kernel_vs_plain(dev, err):
     import torch
-    from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps
+    from richdem_tpu_torch.ops import (accum, fill, flowdirs, successor,
+                                       sweeps)
 
     z, mask = _ragged_dem(dev)
     shape = f"{RAGGED[0]}x{RAGGED[1]}"
@@ -433,7 +544,47 @@ def phase_kernel_vs_plain(dev, err):
                 err, f"{topo}, {shape}")
     log("kernel-vs-plain", "D8 and D4 codes bitwise")
 
+    for topo in ("D8", "D4"):
+        for seed in RHO8_SEEDS:
+            got = flowdirs.rho8_core(filled, mask, 1.5, seed, topo)
+            ref = flowdirs.rho8_plain(filled, mask, 1.5,
+                                      flowdirs.rho8_diagonal(z.shape, seed,
+                                                             dev), topo)
+            bitwise("rho8", ((got, ref),), err,
+                    f"{topo}, seed {seed}, {shape}")
+            check_codes("rho8", got, mask)
+    shares = rho8_planes(dev)
+    log("kernel-vs-plain", f"Rho8 and Rho4 codes, seeds {RHO8_SEEDS}, "
+        f"cellsize 1.5: bitwise, -1 exactly at nodata, none into nodata; "
+        f"diagonal share on 256² planes {shares} (θ/45 within 0.015)")
+
     fd = flowdirs.d8_core(filled, mask)
+    seeds = torch.from_numpy(np.random.default_rng(6).random(RAGGED)
+                             < 0.01).to(dev)
+    for what, fd_eff, init, pinned in resolve_starts(fd, seeds):
+        code = successor.pack_codes(fd_eff, pinned)
+        succ_sweep_pair("resolve_sweep", init, code,
+                        successor.transpose_codes(code), err,
+                        f"{what}, {shape}")
+        got, rk, dk = successor.successor_resolve_info(fd_eff, init, pinned)
+        ref, rp, dp = successor.successor_resolve_info(
+            fd_eff, init, pinned, sweep=successor.resolve_sweep_plain)
+        if not (dk and dp and rk == rp and torch.equal(got, ref)):
+            raise AssertionError(f"resolve fixpoint ({what}) differs "
+                                 f"({rk}/{rp} rotations)")
+        log("kernel-vs-plain", f"resolve sweep ({what}): down and "
+            f"transposed up, and the fixpoint, bitwise ({rk} rotations)")
+    sc = fd.clamp(min=0).to(torch.int8)
+    succ_sweep_pair("strahler_sweep", (fd >= 0).to(torch.int32), sc,
+                    successor.transpose_codes(sc), err, shape)
+    got, rk, dk = successor.strahler_fixpoint_info(fd)
+    ref, rp, dp = successor.strahler_fixpoint_info(
+        fd, sweep=successor.strahler_sweep_plain)
+    if not (dk and dp and rk == rp and torch.equal(got, ref)):
+        raise AssertionError(f"Strahler fixpoint differs ({rk}/{rp})")
+    log("kernel-vs-plain", f"Strahler sweep: down and transposed up, and "
+        f"the fixpoint, bitwise ({rk} rotations, largest order "
+        f"{int(got.max())})")
     rng = np.random.default_rng(5)
     wf = torch.from_numpy(rng.uniform(0.1, 2.0, tuple(z.shape))
                           .astype(np.float32)).to(dev)
@@ -658,6 +809,29 @@ def phase_main(dev, card, kernels):
     return out, launches, z
 
 
+def held_to_native(codes, acc, what):
+    """The native engine's float64 accumulation of D8 ``codes`` conserves
+    mass exactly (NO_FLOW cells absorb every cell), and the port's float32
+    ``acc`` equals it in every cell below 2**24, where float32 holds a
+    count and each partial sum of it exactly; above, it rounds.  Returns
+    (mass, largest relative difference above, cells above, largest)."""
+    from richdem_tpu_torch import native
+
+    got = codes.cpu().numpy()
+    want = native.accum_d8(got)
+    mass = float(want[got == 0].sum())
+    if mass != got.size:
+        raise AssertionError(f"{what} lose mass: {mass} vs {got.size}")
+    acc = acc.cpu().numpy().astype(np.float64)
+    small = want < 2**24
+    if not np.array_equal(acc[small], want[small]):
+        raise AssertionError(f"accumulation of the {what} differs from "
+                             "native below 2**24")
+    rel = float(np.max(np.abs(acc[~small] - want[~small]) / want[~small],
+                       initial=0.0))
+    return mass, rel, int((~small).sum()), float(want.max())
+
+
 def phase_flats_full(out):
     """Flat resolution of the main path's ε = 0 output, whose filled lakes
     are real flats: held bitwise against the native engine at full size,
@@ -683,22 +857,10 @@ def phase_flats_full(out):
     if bad:
         raise AssertionError(f"flats at {MAIN}x{MAIN}: {bad} codes differ "
                              "from native")
-    # mass, exactly: native's float64 accumulation of the resolved codes
-    want = native.accum_d8(got)
     n = MAIN * MAIN
-    mass = float(want[got == 0].sum())
-    if mass != n:
-        raise AssertionError(f"resolved codes lose mass: {mass} vs {n}")
-    # float32 holds a cell's accumulation (and every partial sum of it)
-    # exactly below 2**24 cells; above, it rounds
-    acc = accum.d8_accumulation(resolved, max_rotations=256)
-    acc = acc.cpu().numpy().astype(np.float64)
-    small = want < 2**24
-    if not np.array_equal(acc[small], want[small]):
-        raise AssertionError("accumulation of the resolved codes differs "
-                             "from native below 2**24")
-    rel = float(np.max(np.abs(acc[~small] - want[~small]) / want[~small],
-                       initial=0.0))
+    mass, rel, above, largest = held_to_native(
+        resolved, accum.d8_accumulation(resolved, max_rotations=256),
+        "resolved codes")
     log("flats", f"resolve_flats on the {MAIN}x{MAIN} eps=0 main-path "
         f"output: {before} interior NO_FLOW cells before, 0 after; codes "
         f"bitwise equal to native; {rotations} rotations over the three "
@@ -707,41 +869,47 @@ def phase_flats_full(out):
         f"({mass:.0f} of {n}); the port's float32 accumulation equals it in "
         f"every cell "
         f"below 2**24 and is within {rel:.3e} relative above "
-        f"({int((~small).sum())} cells, largest {want.max():.0f})")
+        f"({above} cells, largest {largest:.0f})")
+
+
+def config2_step(z, eps):
+    """Config 2's step through the entry points: ε-fill, D8,
+    resolve_flats; returns (filled, codes, resolved codes, fill rotations,
+    flats rotations)."""
+    import torch
+    from richdem_tpu_torch import resolve_flats
+    from richdem_tpu_torch.ops import fill, flowdirs
+
+    filled, fiters, fdone = fill.fill_depressions_info(z, eps=eps,
+                                                       max_iters=256)
+    if not fdone:
+        raise AssertionError(f"config 2 fill not converged ({fiters})")
+    fd = flowdirs.d8_core(filled, torch.zeros_like(z, dtype=torch.bool))
+    resolved, rotations, _ = resolve_flats(filled, fd, return_info=True)
+    return filled, fd, resolved, fiters, rotations
 
 
 def phase_config2(dev, card, kernels):
     """BASELINE.json config 2 (bench.py BENCH_CONFIG=fill_flats) at full
     width: auto_epsilon of the device raster, ε-fill, D8, resolve_flats."""
     import torch
-    from richdem_tpu_torch import auto_epsilon, resolve_flats
+    from richdem_tpu_torch import auto_epsilon
     from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch.ops import fill, flowdirs
 
     z = tsynth.perlin_dem(MAIN, MAIN, seed=0, device=dev)
     eps = auto_epsilon(z)
-    nd = torch.zeros_like(z, dtype=torch.bool)
-
-    def step(zz):
-        filled, fiters, fdone = fill.fill_depressions_info(zz, eps=eps,
-                                                           max_iters=256)
-        if not fdone:
-            raise AssertionError(f"config 2 fill not converged ({fiters})")
-        fd = flowdirs.d8_core(filled, nd)
-        resolved, rotations, _ = resolve_flats(filled, fd, return_info=True)
-        return filled, fd, resolved, fiters, rotations
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     (filled, fd, resolved, fiters, rotations), launches = run_path(
         "config 2", kernels, ("fill_sweep", "d8", "dist_sweep"),
-        lambda: step(z))
+        lambda: config2_step(z, eps))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     if not bool((filled >= z).all()):
         raise AssertionError("config 2: filled surface below the DEM")
     noflow = (int((fd == 0).sum()), int((resolved == 0).sum()),
               int((resolved[1:-1, 1:-1] == 0).sum()))
-    ev_secs, host_secs, last = timed_steps(step, z)
+    ev_secs, host_secs, last = timed_steps(config2_step, z, eps)
     if not torch.equal(last[2], resolved):
         raise AssertionError("config 2 is not deterministic")
     n = MAIN * MAIN
@@ -874,6 +1042,24 @@ def phase_terrain(dev, card, z, kernels):
     return launches
 
 
+def time_kernel(name, kern, plain, card, times, what):
+    """One call of ``kern`` timed (after a warm-up call) beside its plain
+    version and the bound of its work at MAIN², from ``COST``."""
+    n = MAIN * MAIN
+    kern()
+    ms = cuda_ms(kern, reps=5)
+    plain_ms = cuda_ms(plain, reps=1)
+    by_bytes = COST[name][0] * n / HBM_BYTES_S
+    by_ops = COST[name][1] * n / F32_FLOPS_S
+    bound = max(by_bytes, by_ops) * 1e3
+    bound_by = "bytes" if by_bytes >= by_ops else "operations"
+    times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=bound_by)
+    log("timing", f"{name} at {what}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms per call; bound {bound:.4f} ms ({bound_by}), "
+        f"{100 * bound / ms:.1f} % of it, on [{card}]")
+
+
 def phase_timing(dev, card, out, z, err, times):
     """Each kernel against its plain version at the paths' shapes, then
     one call of each timed (the compared call warms up)."""
@@ -943,24 +1129,12 @@ def phase_timing(dev, card, out, z, err, times):
         f"terrain: 8 attributes): bitwise, {'/'.join(ATAN)} within rtol "
         f"{ATAN_RTOL}")
 
-    n = MAIN * MAIN
     for name, (kern, plain) in (("fill_sweep", fill_calls),
                                 ("d8", d8_calls),
                                 ("accum_sweep", accum_calls),
                                 ("dist_sweep", dist_calls),
                                 ("terrain", terrain_calls)):
-        kern()
-        ms = cuda_ms(kern, reps=5)
-        plain_ms = cuda_ms(plain, reps=1)
-        nbytes, flops = COST[name][0] * n, COST[name][1] * n
-        bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
-        bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOPS_S \
-            else "operations"
-        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=bound_by)
-        log("timing", f"{name} at {MAIN}x{MAIN}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms per call; bound {bound:.4f} ms "
-            f"({bound_by}), {100 * bound / ms:.1f} % of it, on [{card}]")
+        time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
 
 
 def phase_flow_timing(dev, card, c4, err, times):
@@ -972,39 +1146,252 @@ def phase_flow_timing(dev, card, c4, err, times):
 
     fields = flow_fields(c4["dinf_twi"]["angles"], c4["quinn_mfd"]["props"])
     depths = {"dinf_sweep": dinf.DINF_DEPTH, "mfd_sweep": mfd.MFD_DEPTH}
-    n = MAIN * MAIN
     ones = torch.ones((MAIN, MAIN), dtype=torch.float32, device=dev)
     for name, (field, field_t) in fields.items():
         depth, (kern, plain) = depths[name], flow_sweeps(name)
         flow_sweep_pair(name, ones, ones, field, field_t, depth, err,
                         f"{MAIN}x{MAIN}")
-        call = (lambda: kern(ones, ones, field, False, depth))
-        call()
-        ms = cuda_ms(call, reps=5)
-        plain_ms = cuda_ms(lambda: plain(ones, ones, field, False, depth))
-        nbytes, flops = COST[name][0] * n, COST[name][1] * n
-        bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
-        bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOPS_S \
-            else "operations"
-        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=bound_by)
-        log("timing", f"{name} at {MAIN}x{MAIN}, depth {depth}, on the "
-            f"config-4 path's field: bitwise to plain down and transposed "
-            f"up; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call; "
-            f"bound {bound:.4f} ms ({bound_by}), {100 * bound / ms:.1f} % of "
-            f"it, on [{card}]")
+        time_kernel(name, lambda: kern(ones, ones, field, False, depth),
+                    lambda: plain(ones, ones, field, False, depth), card,
+                    times, f"{MAIN}x{MAIN}, depth {depth}, on the config-4 "
+                    "path's field (bitwise to plain down and transposed up)")
+
+
+def gauge_seeds(acc, k=GAUGES):
+    """Mask of the ``k`` interior cells of largest accumulation, ties going
+    to the lower flat index (the river gauges of a basin study)."""
+    import torch
+
+    inner = torch.full_like(acc, -1.0)
+    inner[1:-1, 1:-1] = acc[1:-1, 1:-1]
+    flat = inner.reshape(-1)
+    kth = torch.topk(flat, k).values[-1]
+    above = torch.nonzero(flat > kth).squeeze(1)
+    tied = torch.nonzero(flat == kth).squeeze(1)[:k - above.numel()]
+    seeds = torch.zeros_like(flat, dtype=torch.bool)
+    seeds[torch.cat([above, tied])] = True
+    return seeds.view(acc.shape)
+
+
+def d8_methods_step(z, eps):
+    """Basin delineation, contributing areas and stream network through the
+    entry points: config 2's step, then watershed labels, Strahler order,
+    D8 accumulation and the upslope cells of the GAUGES gauges."""
+    import torch
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops import accum
+
+    _, _, resolved, fiters, frot = config2_step(z, eps)
+    labels, lrot, _ = rt.watersheds_from_flowdirs(resolved, return_info=True)
+    order, srot, _ = rt.strahler_order(resolved, return_info=True)
+    acc, arot, adone = accum.d8_accumulation_info(resolved,
+                                                  torch.ones_like(z))
+    if not adone:
+        raise AssertionError("d8_methods: accumulation not converged")
+    gauges = gauge_seeds(acc)
+    up, urot, _ = rt.upslope_cells(gauges, resolved, return_info=True)
+    return {"resolved": resolved, "labels": labels, "order": order,
+            "accum": acc, "gauges": gauges, "upslope": up,
+            "rotations": {"fill": fiters, "flats": frot, "watersheds": lrot,
+                          "strahler": srot, "accum": arot, "upslope": urot}}
+
+
+def rho8_step(z, eps):
+    """pyrichdem's ``FlowAccumulation(method="Rho8")`` through the entry
+    points: ε-fill, ``rho8_flowdirs(seed=0)``, D8 accumulation."""
+    import torch
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops import accum, fill
+
+    filled, fiters, fdone = fill.fill_depressions_info(z, eps=eps,
+                                                       max_iters=256)
+    if not fdone:
+        raise AssertionError(f"rho8 fill not converged ({fiters})")
+    codes = rt.rho8_flowdirs(filled, seed=0)
+    acc, arot, adone = accum.d8_accumulation_info(codes, torch.ones_like(z))
+    if not adone:
+        raise AssertionError("rho8: accumulation not converged")
+    return {"filled": filled, "codes": codes, "accum": acc,
+            "rotations": {"fill": fiters, "accum": arot}}
+
+
+def strahler_defects(order, fd):
+    """Cells whose order breaks Strahler's defining equation, written
+    afresh from the codes: 0 on nodata; else, with m the largest order of
+    the neighbours whose code points here and k the number at m, 1 if there
+    is none, m + 1 if k >= 2, m otherwise."""
+    import torch
+    from richdem_tpu_torch import topology
+    from richdem_tpu_torch.ops.stencil import neighbor
+
+    fd = fd.to(torch.int32)
+    m = torch.zeros_like(order)
+    cnt = torch.zeros_like(order)
+    inflows = []
+    for d in range(1, 9):
+        flows_in = neighbor(fd, d, -1) == int(topology.D8_INVERSE[d])
+        inflows.append((d, flows_in))
+        m = torch.maximum(m, torch.where(flows_in, neighbor(order, d, 0), 0))
+    for d, flows_in in inflows:
+        cnt += (flows_in & (neighbor(order, d, 0) == m) & (m > 0)).int()
+    want = torch.where(m == 0, 1, torch.where(cnt >= 2, m + 1, m))
+    want = torch.where(fd >= 0, want, 0)
+    return int((order != want).sum())
+
+
+def phase_d8_methods(dev, card, kernels, z):
+    """The d8_methods path at MAIN² (:func:`d8_methods_step`), held to
+    gates that do not run its kernels: pointer doubling for labels and
+    upslope cells, the defining equation for Strahler order, and the Jacobi
+    fixpoint at JACOBI_SHAPE."""
+    import torch
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch import methods
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import successor
+
+    eps = rt.auto_epsilon(z)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches = run_path(
+        "d8_methods", kernels,
+        ("fill_sweep", "d8", "dist_sweep", "accum_sweep", "resolve_sweep",
+         "strahler_sweep"), lambda: d8_methods_step(z, eps))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    fd, labels = out["resolved"], out["labels"]
+    if not torch.equal(labels, methods.watersheds_doubling(fd)):
+        raise AssertionError("watershed labels differ from pointer doubling")
+    succ = successor.successor_table(fd)
+    own = torch.arange(succ.numel(), device=dev)
+    lab = labels.reshape(-1).long()
+    terminal = succ == own
+    if not (torch.equal(lab[terminal], own[terminal])
+            and torch.equal(lab, lab[succ])):
+        raise AssertionError("a label is not its terminal's index")
+    del succ, own, lab
+    if not torch.equal(out["upslope"],
+                       methods.upslope_doubling(out["gauges"], fd)):
+        raise AssertionError("upslope cells differ from pointer doubling")
+    bad = strahler_defects(out["order"], fd)
+    if bad:
+        raise AssertionError(f"Strahler order breaks its equation at {bad} "
+                             "cells")
+    zj = tsynth.perlin_dem(*JACOBI_SHAPE, seed=0, device=dev)
+    fdj = config2_step(zj, rt.auto_epsilon(zj))[2]
+    oj, jiters, _ = methods.strahler_jacobi(fdj, max_iters=1 << 16,
+                                            return_info=True)
+    if not torch.equal(rt.strahler_order(fdj), oj):
+        raise AssertionError("Strahler order differs from the Jacobi "
+                             f"fixpoint at {JACOBI_SHAPE}")
+    ev_secs, host_secs, last = timed_steps(d8_methods_step, z, eps)
+    for key in ("labels", "order", "accum", "upslope"):
+        if not torch.equal(last[key], out[key]):
+            raise AssertionError(f"d8_methods {key} is not deterministic")
+    n = MAIN * MAIN
+    log("d8_methods", f"{MAIN}x{MAIN} Perlin seed 0, eps {eps!r}: "
+        f"rotations {out['rotations']}; {int(terminal.sum())} basins, "
+        f"largest Strahler order {int(out['order'].max())}, "
+        f"{int(out['upslope'].sum())} cells upslope of {GAUGES} gauges; "
+        f"labels and upslope bitwise equal to pointer doubling, Strahler "
+        f"order meets its equation at every cell and equals the Jacobi "
+        f"fixpoint at {JACOBI_SHAPE[0]}x{JACOBI_SHAPE[1]} ({jiters} "
+        f"iterations); {STEPS} steps after one warm-up: {ev_secs} s (CUDA "
+        f"events), {host_secs} s (host); best {n / min(ev_secs):.4e} "
+        f"cells/s; peak allocated {peak_gib:.3f} GiB (warm-up step, DEM "
+        f"included) on [{card}]; launches {launches}")
+    return out, launches
+
+
+def phase_rho8(dev, card, kernels, z):
+    """The rho8 path at MAIN² (:func:`rho8_step`): sound codes, mass
+    conserved exactly, deterministic."""
+    import torch
+    import richdem_tpu_torch as rt
+
+    eps = rt.auto_epsilon(z)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches = run_path("rho8", kernels,
+                             ("fill_sweep", "rho8", "accum_sweep"),
+                             lambda: rho8_step(z, eps))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    codes = out["codes"]
+    check_codes("rho8", codes, torch.zeros_like(z, dtype=torch.bool))
+    flowing = codes > 0
+    diagonal = float(((codes % 2 == 0) & flowing).sum() / flowing.sum())
+    mass, rel, above, largest = held_to_native(codes, out["accum"],
+                                               "Rho8 codes")
+    ev_secs, host_secs, last = timed_steps(rho8_step, z, eps)
+    if not (torch.equal(last["codes"], codes)
+            and torch.equal(last["accum"], out["accum"])):
+        raise AssertionError("rho8 is not deterministic")
+    n = MAIN * MAIN
+    log("rho8", f"{MAIN}x{MAIN} Perlin seed 0, eps {eps!r}, Rho8 seed 0: "
+        f"rotations {out['rotations']}; {diagonal:.4f} of the flowing cells "
+        f"take a diagonal; native float64 accumulation of the codes "
+        f"conserves mass exactly ({mass:.0f} of {n}), the port's float32 "
+        f"accumulation equals it below 2**24 and is within {rel:.3e} "
+        f"relative above ({above} cells, largest {largest:.0f}); {STEPS} "
+        f"steps after one warm-up: {ev_secs} s (CUDA events), {host_secs} s "
+        f"(host); best {n / min(ev_secs):.4e} cells/s; peak allocated "
+        f"{peak_gib:.3f} GiB (warm-up step, DEM included) on [{card}]; "
+        f"launches {launches}")
+    return out, launches
+
+
+def phase_methods_timing(dev, card, dm, r8, err, times):
+    """The resolve, Strahler and Rho8 kernels against their plain versions
+    on the new paths' own codes at MAIN² (a down and a transposed up sweep
+    from each resolve's start and from order 1), then one call of each
+    timed."""
+    import torch
+    from richdem_tpu_torch.ops import flowdirs, successor
+
+    fd = dm["resolved"]
+    calls = {}
+    for what, fd_eff, init, pinned in resolve_starts(fd, dm["gauges"]):
+        code = successor.pack_codes(fd_eff, pinned)
+        succ_sweep_pair("resolve_sweep", init, code,
+                        successor.transpose_codes(code), err,
+                        f"{MAIN}x{MAIN}, {what}")
+        calls.setdefault("resolve_sweep", (
+            lambda v=init, c=code: successor.resolve_sweep(v, c, False),
+            lambda v=init, c=code: successor.resolve_sweep_plain(v, c,
+                                                                 False)))
+    o0 = (fd >= 0).to(torch.int32)
+    sc = fd.clamp(min=0).to(torch.int8)
+    succ_sweep_pair("strahler_sweep", o0, sc, successor.transpose_codes(sc),
+                    err, f"{MAIN}x{MAIN}")
+    calls["strahler_sweep"] = (
+        lambda: successor.strahler_sweep(o0, sc, False),
+        lambda: successor.strahler_sweep_plain(o0, sc, False))
+    filled = r8["filled"]
+    nd = torch.zeros_like(filled, dtype=torch.bool)
+    calls["rho8"] = (
+        lambda: flowdirs.rho8_core(filled, nd, 1.0, 0),
+        lambda: flowdirs.rho8_plain(filled, nd, 1.0, flowdirs.rho8_diagonal(
+            filled.shape, 0, dev)))
+    got, ref = calls["rho8"][0](), calls["rho8"][1]()
+    bitwise("rho8", ((got, ref), (r8["codes"], ref)), err, f"{MAIN}x{MAIN}")
+    log("timing", f"resolve (watersheds, upslope) and Strahler sweeps at "
+        f"{MAIN}x{MAIN} on the d8_methods path's codes, down and transposed "
+        f"up, and Rho8 codes on the rho8 path's surface: bitwise")
+    for name, (kern, plain) in calls.items():
+        time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
 
 
 def main():
+    t0 = time.perf_counter()
     card = phase_device()
     import torch
     from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs,
-                                       mfd, terrain)
+                                       mfd, successor, terrain)
 
     dev = torch.device("cuda", 0)
     kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP,
                flats.DIST_SWEEP, terrain.TERRAIN, dinf.DINF_SWEEP,
-               mfd.MFD_SWEEP]
+               mfd.MFD_SWEEP, flowdirs.RHO8, successor.RESOLVE_SWEEP,
+               successor.STRAHLER_SWEEP]
     phase_build(kernels)
     err = {k.name: 0.0 for k in kernels}
     phase_kernel_vs_plain(dev, err)
@@ -1021,11 +1408,18 @@ def main():
     phase_timing(dev, card, out, z, err, times)
     del out
     phase_flow_timing(dev, card, c4, err, times)
+    del c4
+    dm, path_launches["d8_methods"] = phase_d8_methods(dev, card, kernels, z)
+    dm = {k: dm[k] for k in ("resolved", "gauges")}  # what timing reads
+    r8, path_launches["rho8"] = phase_rho8(dev, card, kernels, z)
+    phase_methods_timing(dev, card, dm, r8, err, times)
     if any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
            or m == "richdem_tpu"
            for m in sys.modules if sys.modules[m] is not None):
         raise AssertionError("JAX or the JAX package was imported")
 
+    log("done", f"every phase passed in {time.perf_counter() - t0:.1f} s "
+        "(builds included)")
     record = {"kernels": [
         {"name": k.name, "route": "cuda",
          "source": f"richdem_tpu_torch/csrc/{k.name}.cu",

@@ -1,9 +1,10 @@
 """richdem_tpu_torch — the PyTorch / CUDA port of richdem_tpu.
 
 The main path (fill → D8 flow directions → D8 accumulation, plus slope and
-TWI), ε-fill with flat resolution, the terrain attributes, and D∞ and
-multi-flow routing with their accumulation (TWI, SPI) run on an NVIDIA
-Hopper card through seven hand-written CUDA kernels (``csrc/``), built with
+TWI), ε-fill with flat resolution, the terrain attributes, D∞ and
+multi-flow routing with their accumulation (TWI, SPI), Rho8 routing, and
+the D8 methods (watersheds, upslope cells, Strahler order) run on an NVIDIA
+Hopper card through ten hand-written CUDA kernels (``csrc/``), built with
 ``nvcc`` at first use, and on the CPU through their plain PyTorch
 versions.  Entry points run where a given tensor lives, and put arrays on
 the card unless asked for another device.  The JAX package ``richdem_tpu``
@@ -11,13 +12,16 @@ stays the reference; this package imports nothing of it and never imports
 JAX.  Importing it touches neither CUDA nor ``nvcc``.
 """
 
-from richdem_tpu_torch.methods import spi, twi
+from richdem_tpu_torch.methods import (spi, strahler_order, twi,
+                                      upslope_cells,
+                                      watersheds_from_flowdirs)
 from richdem_tpu_torch.ops.accum import (dinf_accumulation_from_angles,
                                          flow_accumulation_from_props)
 from richdem_tpu_torch.ops.fill import auto_epsilon, fill_epsilon
 from richdem_tpu_torch.ops.flats import (flat_mask_and_labels_device,
                                          resolve_flats)
-from richdem_tpu_torch.ops.flowdirs import dinf_flowdirs, flow_proportions
+from richdem_tpu_torch.ops.flowdirs import (dinf_flowdirs, flow_proportions,
+                                            rho8_flowdirs)
 from richdem_tpu_torch.ops.terrain import terrain_attribute
 from richdem_tpu_torch.pipeline import (check_converged, make_pipeline,
                                         terrain_pipeline)
@@ -29,4 +33,5 @@ __all__ = ["__version__", "make_pipeline", "terrain_pipeline",
            "resolve_flats", "flat_mask_and_labels_device",
            "terrain_attribute", "dinf_flowdirs", "flow_proportions",
            "dinf_accumulation_from_angles", "flow_accumulation_from_props",
-           "twi", "spi"]
+           "twi", "spi", "rho8_flowdirs", "watersheds_from_flowdirs",
+           "upslope_cells", "strahler_order"]

@@ -34,6 +34,7 @@ from richdem_tpu_torch.ops.dinf import (DINF_DEPTH, dinf_accumulation,
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.mfd import MFD_DEPTH, mfd_accumulation
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor
+from richdem_tpu_torch.ops.successor import successor_table
 from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
                                           accumulation_rotations,
                                           accumulation_trios, pad_row,
@@ -235,14 +236,8 @@ def d8_accumulation_doubling(flowdirs, weights=None, no_data_mask=None,
         weights = torch.where(no_data_mask, 0.0, weights)
     if rounds is None:
         rounds = max(1, math.ceil(math.log2(max(n, 2))))
-    rows = torch.arange(h, device=dev)[:, None].expand(h, w)
-    cols = torch.arange(w, device=dev)[None, :].expand(h, w)
-    code = fd.clamp(min=0)
-    nr = rows + torch.as_tensor(topology.DY, device=dev).long()[code]
-    nc = cols + torch.as_tensor(topology.DX, device=dev).long()[code]
-    valid = (fd > 0) & (nr >= 0) & (nr < h) & (nc >= 0) & (nc < w)
     sink = torch.tensor([n], device=dev)
-    succ = torch.cat([torch.where(valid, nr * w + nc, n).reshape(-1), sink])
+    succ = torch.cat([successor_table(fd, terminal=n), sink])
     acc = torch.cat([weights.reshape(-1), weights.new_zeros(1)])
     live = torch.arange(n + 1, device=dev) < n
     for _ in range(rounds):

@@ -9,13 +9,21 @@ nodata neighbours invalid, first maximum in direction order 1..8 with
 strict ``>``, ``NO_FLOW`` unless the best slope is > 0,
 ``FLOWDIR_NO_DATA`` at nodata.  Codes are int8.
 
+Rho8 / Rho4 (``rho8_core``, ``rho8_flowdirs``; Fairfield & Leymarie 1991)
+replaces ``pallas_stencils._rho8_kernel``: the same steepest descent with a
+random diagonal distance ``1 + tan(u·π/4)`` per cell.  Its random bits come
+from Philox4x32-10 keyed by the seed and counting the cell's flat index, in
+the kernel (``csrc/rho8.cu``) as on the TPU, and in int64 tensor arithmetic
+in the plain version (:func:`philox_bits`), so one seed gives one stream on
+every device.  It is not the stream of ``jax.random`` or of the TPU's
+``pltpu.prng``: the reference's gates on Rho8 are statistical.
+
 The other metrics are XLA stencils in the reference and plain PyTorch here,
 on any device: Tarboton D∞ angles (:func:`dinf_flowdirs`) and the
-``(H, W, 8)`` proportions of :func:`flow_proportions` (D8/D4, D∞, Quinn,
-Freeman, Holmgren, Seibert–McGlynn).  Proportions come back as an
-``(H, W, 8)`` view of a plane-major ``(8, H, W)`` stack, the layout the
-accumulation sweeps read, so handing them on costs no copy.  Rho8 waits for
-its kernel.
+``(H, W, 8)`` proportions of :func:`flow_proportions` (D8/D4, Rho8/Rho4,
+D∞, Quinn, Freeman, Holmgren, Seibert–McGlynn).  Proportions come back as
+an ``(H, W, 8)`` view of a plane-major ``(8, H, W)`` stack, the layout the
+accumulation sweeps read, so handing them on costs no copy.
 """
 
 from __future__ import annotations
@@ -26,45 +34,62 @@ import math
 import numpy as np
 import torch
 
-from richdem_tpu_torch import topology
+from richdem_tpu_torch import topology as topo
 from richdem_tpu_torch._build import Kernel, stream_handle
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
 
-__all__ = ["D8", "d8_plain", "d8_core", "d8_flowdirs", "dinf_flowdirs",
-           "proportions_from_dinf", "proportions_from_d8",
-           "flow_proportions"]
+__all__ = ["D8", "RHO8", "d8_plain", "d8_core", "d8_flowdirs",
+           "philox4x32", "philox_bits", "rho8_diagonal", "rho8_plain", "rho8_core",
+           "rho8_flowdirs", "dinf_flowdirs", "proportions_from_dinf",
+           "proportions_from_d8", "flow_proportions"]
 
 _P = ctypes.c_void_p
 D8 = Kernel("d8", "rd_d8_flowdirs",
             [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_float, ctypes.c_int, _P])
+RHO8 = Kernel("rho8", "rd_rho8_flowdirs",
+              [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, _P])
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 _INVALID = -3.0e38  # slope of an invalid neighbour
 
 
-def _directions(topology_name):
-    return (1, 3, 5, 7) if topology_name == "D4" else tuple(range(1, 9))
+def _directions(topology):
+    return (1, 3, 5, 7) if topology == "D4" else tuple(range(1, 9))
+
+
+def _check_topology(topology):
+    if topology not in ("D8", "D4"):
+        raise ValueError(f"topology must be 'D8' or 'D4', "
+                         f"not {topology!r}")
 
 
 def _distance(d, cellsize) -> float:
     """float32 ``DR[d] * cellsize``, rounded as the reference rounds it."""
-    return float(np.float32(topology.DR[d]) * np.float32(cellsize))
+    return float(np.float32(topo.DR[d]) * np.float32(cellsize))
 
 
-def d8_plain(z, nodata_mask, cellsize=1.0, topology_name="D8"):
-    """Plain version of the D8 kernel: one shifted view per direction."""
+def _steepest_plain(z, nodata_mask, cellsize, topology, diag=None):
+    """Codes of the steepest descent, one shifted view per direction; the
+    diagonal distance is ``diag * cellsize`` where ``diag`` (an (H, W)
+    raster) is given, ``√2 · cellsize`` otherwise."""
     z = z.to(torch.float32)
     big = torch.tensor(_FLT_MAX, dtype=torch.float32, device=z.device)
     zed = torch.where(nodata_mask, big, z)
     best = torch.full_like(z, _INVALID)
     code = torch.zeros(z.shape, dtype=torch.int8, device=z.device)
-    for d in _directions(topology_name):
+    cs = torch.tensor(cellsize, dtype=torch.float32, device=z.device)
+    for d in _directions(topology):
         zn = neighbor(zed, d, _FLT_MAX)
-        # a device tensor, not a Python scalar: PyTorch's CUDA division by
-        # a host scalar multiplies by its reciprocal, which rounds apart
-        dist = torch.tensor(_distance(d, cellsize), dtype=torch.float32,
-                            device=z.device)
+        if diag is not None and topo.IS_DIAGONAL[d]:
+            dist = diag * cs
+        else:
+            # a device tensor, not a Python scalar: PyTorch's CUDA division
+            # by a host scalar multiplies by its reciprocal, which rounds
+            # apart
+            dist = torch.tensor(_distance(d, cellsize), dtype=torch.float32,
+                                device=z.device)
         s = torch.where(zn < big, (z - zn) / dist,
                         torch.tensor(_INVALID, device=z.device))
         take = s > best
@@ -75,15 +100,13 @@ def d8_plain(z, nodata_mask, cellsize=1.0, topology_name="D8"):
     return torch.where(nodata_mask, torch.full_like(code, -1), fd)
 
 
-def d8_core(z, nodata_mask, cellsize=1.0, topology_name="D8"):
-    """D8/D4 codes (int8) of ``z`` with its nodata mask.  A CUDA tensor
-    launches ``csrc/d8.cu`` (raising if it cannot be built or launched); a
-    CPU tensor runs :func:`d8_plain`."""
-    if topology_name not in ("D8", "D4"):
-        raise ValueError(f"topology must be 'D8' or 'D4', "
-                         f"not {topology_name!r}")
-    if not z.is_cuda:
-        return d8_plain(z, nodata_mask, cellsize, topology_name)
+def d8_plain(z, nodata_mask, cellsize=1.0, topology="D8"):
+    """Plain version of the D8 kernel: one shifted view per direction."""
+    return _steepest_plain(z, nodata_mask, cellsize, topology)
+
+
+def _stencil_inputs(z, nodata_mask):
+    """``z`` and its mask, checked and contiguous, for a stencil kernel."""
     if z.dim() != 2 or z.dtype != torch.float32:
         raise ValueError(f"z: expected a 2-D float32 tensor, got {z.dtype} "
                          f"{tuple(z.shape)}")
@@ -91,25 +114,127 @@ def d8_core(z, nodata_mask, cellsize=1.0, topology_name="D8"):
             or nodata_mask.device != z.device):
         raise ValueError("nodata_mask must be a bool tensor shaped and "
                          "placed like z")
-    z = z.contiguous()
-    nodata_mask = nodata_mask.contiguous()
+    return z.contiguous(), nodata_mask.contiguous()
+
+
+def d8_core(z, nodata_mask, cellsize=1.0, topology="D8"):
+    """D8/D4 codes (int8) of ``z`` with its nodata mask.  A CUDA tensor
+    launches ``csrc/d8.cu`` (raising if it cannot be built or launched); a
+    CPU tensor runs :func:`d8_plain`."""
+    _check_topology(topology)
+    if not z.is_cuda:
+        return d8_plain(z, nodata_mask, cellsize, topology)
+    z, nodata_mask = _stencil_inputs(z, nodata_mask)
     h, w = z.shape
     out = torch.empty(z.shape, dtype=torch.int8, device=z.device)
     if h == 0 or w == 0:
         return out
     D8.launch(z.data_ptr(), nodata_mask.data_ptr(), out.data_ptr(), h, w,
               _distance(1, cellsize), _distance(2, cellsize),
-              int(topology_name == "D4"), stream_handle(z.device))
+              int(topology == "D4"), stream_handle(z.device))
     return out
 
 
-def d8_flowdirs(dem, no_data=None, topology_name="D8", cellsize=1.0,
+def d8_flowdirs(dem, no_data=None, topology="D8", cellsize=1.0,
                 device="cuda"):
     """Steepest-descent single flow directions of a DEM: a tensor (the
     work runs where it lives) or an array (moved to ``device``)."""
     dem = as_tensor(dem, device)
     return d8_core(dem.to(torch.float32), nodata_like(dem, no_data),
-                   cellsize, topology_name)
+                   cellsize, topology)
+
+
+# -- Rho8 -----------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+#: Philox4x32 multipliers and Weyl key increments (Salmon et al. 2011)
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+PHILOX_ROUNDS = 10
+
+
+def _mulhilo(m, x):
+    """High and low 32-bit words of ``m * x`` for a 32-bit constant ``m``
+    and uint32 values ``x`` held in int64, without overflowing int64: ``m``
+    is split into 16-bit halves, so every partial product is below 2⁴⁹."""
+    p_lo = x * (m & 0xFFFF)
+    p_hi = x * (m >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32(counter, seed):
+    """Philox4x32-10 of the four uint32 counter words (int64 tensors of one
+    shape), keyed by the low 64 bits of ``seed``; returns the four output
+    words.  The key schedule is host arithmetic on Python ints."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    for _ in range(PHILOX_ROUNDS):
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + PHILOX_W[0]) & _MASK32, (k1 + PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_bits(shape, seed, device):
+    """32 random bits per cell (int64): the first word of Philox4x32-10 of
+    the counter (flat index, 0, 0, 0) under ``seed``, as ``csrc/rho8.cu``
+    draws them."""
+    h, w = shape
+    idx = torch.arange(h * w, dtype=torch.int64, device=device).view(h, w)
+    zero = torch.zeros_like(idx)
+    return philox4x32((idx & _MASK32, idx >> 32, zero, zero), seed)[0]
+
+
+def rho8_diagonal(shape, seed, device):
+    """The random diagonal distance ``1 + tan(u·π/4)`` per cell, float32,
+    with ``u = (bits & 0xFFFFFF)·2⁻²⁴`` from :func:`philox_bits` (the TPU
+    kernel's ``u``; ``1 + tan`` is the reference's)."""
+    bits = philox_bits(shape, seed, device)
+    u = (bits & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
+    quarter = torch.tensor(math.pi / 4.0, dtype=torch.float32, device=device)
+    return 1.0 + torch.tan(u * quarter)
+
+
+def rho8_plain(z, nodata_mask, cellsize, diag, topology="D8"):
+    """Plain Rho8 core with the diagonal-distance raster ``diag`` given:
+    ``ops.flowdirs._neighbor_slopes(diag_dist=diag)`` and ``_steepest``
+    of the reference (slope by division, first maximum, strict ``>``)."""
+    return _steepest_plain(z, nodata_mask, cellsize, topology, diag)
+
+
+def rho8_core(z, nodata_mask, cellsize=1.0, seed=0, topology="D8"):
+    """Rho8 / Rho4 codes (int8) of ``z`` with its nodata mask.  A CUDA
+    tensor launches ``csrc/rho8.cu``, which draws the random bits in the
+    kernel (raising if it cannot be built or launched); a CPU tensor runs
+    :func:`rho8_plain` on :func:`rho8_diagonal`, the same stream."""
+    _check_topology(topology)
+    if not z.is_cuda:
+        diag = rho8_diagonal(z.shape, seed, z.device)
+        return rho8_plain(z, nodata_mask, cellsize, diag, topology)
+    z, nodata_mask = _stencil_inputs(z, nodata_mask)
+    h, w = z.shape
+    out = torch.empty(z.shape, dtype=torch.int8, device=z.device)
+    if h == 0 or w == 0:
+        return out
+    RHO8.launch(z.data_ptr(), nodata_mask.data_ptr(), out.data_ptr(), h, w,
+                float(np.float32(cellsize)), seed & _MASK32,
+                (seed >> 32) & _MASK32, int(topology == "D4"),
+                stream_handle(z.device))
+    return out
+
+
+def rho8_flowdirs(dem, no_data=None, seed=0, topology="D8", cellsize=1.0,
+                  device="cuda"):
+    """Stochastic aspect-unbiased single flow directions (Fairfield &
+    Leymarie 1991): the diagonal wins with the probability that its true
+    direction deserves.  ``seed`` keys the random stream (the reference's
+    ``key=`` is JAX's and has no counterpart).  ``dem``: a tensor (the
+    work runs where it lives) or an array (moved to ``device``)."""
+    dem = as_tensor(dem, device)
+    return rho8_core(dem.to(torch.float32), nodata_like(dem, no_data),
+                     cellsize, seed, topology)
 
 
 # -- multi-flow metrics (plain PyTorch, as XLA in the reference) ---------
@@ -126,7 +251,7 @@ def _neighbor_slopes(z, nodata_mask, cellsize, dirs):
                          device=z.device)
     for i, d in enumerate(dirs):
         zn = neighbor(zed, d, _FLT_MAX)
-        dist = torch.tensor(topology.DR[d], dtype=compute.dtype,
+        dist = torch.tensor(topo.DR[d], dtype=compute.dtype,
                             device=z.device) * cs
         torch.where(zn < big, (compute - zn) / dist, neg, out=slopes[i])
     return slopes
@@ -286,19 +411,17 @@ def flow_proportions(dem, method="D8", no_data=None, exponent=None,
                      cellsize=1.0, seed=0, device="cuda"):
     """(H, W, 8) proportions of any metric, the counterpart of pyrichdem's
     ``FlowProportions``.  ``dem``: a tensor (the work runs where it lives)
-    or an array (moved to ``device``).  ``seed`` is Rho8's, which is not
-    ported yet: its kernel (``pallas_stencils._rho8_kernel``) is next in
-    ROADMAP.md queue 2 (item 6), so ``"Rho8"``/``"Rho4"`` raise
-    ``NotImplementedError``."""
+    or an array (moved to ``device``).  ``seed`` keys Rho8's stream."""
     z = as_tensor(dem, device)
     m = method.lower()
     if m in ("d8", "ocallaghan", "d4"):
-        topo = "D4" if m == "d4" else "D8"
-        return proportions_from_d8(d8_flowdirs(z, no_data, topo, cellsize))
+        topology = "D4" if m == "d4" else "D8"
+        return proportions_from_d8(d8_flowdirs(z, no_data, topology,
+                                               cellsize))
     if m in ("rho8", "rho4"):
-        raise NotImplementedError(
-            f"{method}: Rho8 needs its kernel (pallas_stencils._rho8_kernel),"
-            " not yet ported; see ROADMAP.md queue 2, item 6")
+        topology = "D4" if m == "rho4" else "D8"
+        return proportions_from_d8(rho8_flowdirs(z, no_data, seed, topology,
+                                                 cellsize))
     if m in ("dinf", "tarboton"):
         return proportions_from_dinf(dinf_flowdirs(z, no_data, cellsize))
     mask = nodata_like(z, no_data)

@@ -1,0 +1,289 @@
+"""Successor fixpoints over D8 codes: the successor resolve (watershed
+labels, upslope masks) and Strahler order, by Gauss–Seidel sweeps.
+
+Counterpart of ``richdem_tpu.ops.pallas_folded`` lines 595-852
+(``successor_resolve_folded``, ``strahler_folded``).  One resolve sweep
+sets ``V(c) ← V(successor(c))`` for every unpinned cell whose successor
+the sweep has already reached; one Strahler sweep sets a cell's order from
+the orders of the cells that flow into it.  A rotation is down, up,
+transposed down, transposed up; the transposed sweeps read codes through
+:data:`~richdem_tpu_torch.ops.sweeps.PERM_TRANSPOSE`.  Values are int32,
+so a rotation that changes nothing is exact convergence, and a loop that
+reaches ``max_rotations`` first raises (the reference returns silently).
+
+A CUDA tensor goes through ``csrc/resolve_sweep.cu`` and
+``csrc/strahler_sweep.cu`` (one walk, ``csrc/succ_sweep.cuh``); a CPU
+tensor through :func:`resolve_sweep_plain` and :func:`strahler_sweep_plain`,
+which read tile seams as the kernels do, so one sweep is bitwise the
+kernel's.  The resolve's pin rides in the sign bit of the code byte
+(:func:`pack_codes`).
+
+:func:`successor_table` (flat successor indices) serves the plain pointer
+doubling of :mod:`richdem_tpu_torch.methods` and of
+``accum.d8_accumulation_doubling``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from richdem_tpu_torch import topology
+from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
+from richdem_tpu_torch.ops.fill import _require_converged
+from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
+                                          accumulation_rotations,
+                                          accumulation_trios, seam_columns)
+
+__all__ = ["RESOLVE_SWEEP", "STRAHLER_SWEEP", "successor_table",
+           "effective_codes", "pack_codes", "transpose_codes",
+           "resolve_sweep_plain", "resolve_sweep", "successor_resolve_info",
+           "successor_resolve", "strahler_sweep_plain", "strahler_sweep",
+           "strahler_fixpoint_info", "strahler_fixpoint"]
+
+_P = ctypes.c_void_p
+_SWEEP_ARGS = [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+RESOLVE_SWEEP = Kernel("resolve_sweep", "rd_resolve_sweep", _SWEEP_ARGS)
+STRAHLER_SWEEP = Kernel("strahler_sweep", "rd_strahler_sweep", _SWEEP_ARGS)
+
+#: What an off-grid cell reads as in each sweep (the kernels' ``OFF``).
+RESOLVE_OFF = -1
+STRAHLER_OFF = 0
+_PIN = -128  # the sign bit of a packed code byte
+
+
+def _targets(flowdirs):
+    """Flat own and successor indices (int64) and whether the successor is
+    a real cell: a code in 1..8 pointing inside the grid."""
+    fd = flowdirs.to(torch.int64)
+    h, w = fd.shape
+    dev = fd.device
+    rows = torch.arange(h, device=dev)[:, None].expand(h, w)
+    cols = torch.arange(w, device=dev)[None, :].expand(h, w)
+    code = fd.clamp(0, 8)
+    nr = rows + torch.as_tensor(topology.DY, device=dev).long()[code]
+    nc = cols + torch.as_tensor(topology.DX, device=dev).long()[code]
+    valid = (fd > 0) & (nr >= 0) & (nr < h) & (nc >= 0) & (nc < w)
+    return rows * w + cols, nr * w + nc, valid
+
+
+def successor_table(flowdirs, terminal=None):
+    """Flat index (int64, raveled) of each cell's D8 successor.  A terminal
+    (NO_FLOW, nodata, or a code pointing off the grid) gets ``terminal``,
+    or its own index when that is None (``methods._successors`` of the
+    reference)."""
+    own, succ, valid = _targets(flowdirs)
+    other = own if terminal is None else torch.full_like(own, terminal)
+    return torch.where(valid, succ, other).reshape(-1)
+
+
+def effective_codes(flowdirs):
+    """int8 codes with every cell that points off the grid, and every
+    nodata cell, made a terminal (code 0): ``methods._fd_effective`` of the
+    reference."""
+    _, _, valid = _targets(flowdirs)
+    return torch.where(valid, flowdirs.to(torch.int8),
+                       torch.zeros((), dtype=torch.int8,
+                                   device=flowdirs.device))
+
+
+def pack_codes(flowdirs, pinned):
+    """The resolve sweep's code byte: the code (negative codes as 0) with
+    the pin in the sign bit."""
+    code = flowdirs.clamp(min=0).to(torch.int8)
+    return torch.where(pinned, code + _PIN, code).to(torch.int8)
+
+
+def transpose_codes(code):
+    """The (W, H) code raster of the transposed grid, contiguous: each code
+    permuted by ``PERM_TRANSPOSE``, a pin bit kept."""
+    perm = torch.as_tensor(PERM_TRANSPOSE, device=code.device)
+    moved = perm[(code & 15).long()]
+    out = torch.where(code < 0, moved + _PIN, moved).to(torch.int8)
+    return out.t().contiguous()
+
+
+def _pad(x, off):
+    return F.pad(x[None], (1, 1), value=off)[0]
+
+
+def _split(row):
+    """West, centre and east views of a (W + 2)-padded row."""
+    return row[:-2], row[1:-1], row[2:]
+
+
+def _walk(v_in, code, reverse, off, tile, rule):
+    """One sweep of the plain versions: a loop over rows in sweep order,
+    vectorised across columns, with the kernels' staging.  For each row,
+    ``rule(prev, prev_code, own, own_code, after, after_code)`` gives its
+    new values from (W + 2)-padded rows: ``prev`` the (west, centre, east)
+    views of the new values of the row before, read at their sweep-start
+    values across a tile edge of ``tile`` columns as the kernels read them;
+    ``own`` and ``after`` sweep-start values.  Off-grid cells read ``off``
+    and code 0."""
+    h, wd = v_in.shape
+    dev = v_in.device
+    out = torch.empty_like(v_in)
+    lseam, rseam = seam_columns(wd, tile, dev)
+    rows = list(range(h - 1, -1, -1) if reverse else range(h))
+    step = -1 if reverse else 1
+    p = torch.full((wd + 2,), off, dtype=v_in.dtype, device=dev)
+    pc = torch.zeros(wd + 2, dtype=code.dtype, device=dev)
+    off_row = p.clone()
+    for k, r in enumerate(rows):
+        lv, lc = _pad(v_in[r], off), _pad(code[r], 0)
+        rn = r + step
+        if 0 <= rn < h:
+            nv, nc = _pad(v_in[rn], off), _pad(code[rn], 0)
+        else:
+            nv, nc = off_row, torch.zeros_like(lc)
+        west, east = p[:-2], p[2:]
+        if k > 0 and lseam.numel():
+            old = _pad(v_in[rows[k - 1]], off)
+            west, east = west.clone(), east.clone()
+            west[lseam] = old[lseam]       # old[c - 1] in padded coords
+            east[rseam] = old[rseam + 2]   # old[c + 1]
+        new = rule((west, p[1:-1], east), pc, lv, lc, nv, nc)
+        out[r] = new
+        p, pc = _pad(new, off), lc
+    return out
+
+
+def resolve_sweep_plain(v_in, code, reverse, tile=SWEEP_TILE):
+    """Plain version of the resolve-sweep kernel (``csrc/resolve_sweep.cu``).
+    ``code``: :func:`pack_codes` bytes.  ``tile``: width of the kernel's
+    column tiles; across a tile edge the row before is read at its
+    sweep-start values, as the kernel reads it, so one sweep is bitwise the
+    kernel's."""
+    before = 1 if reverse else -1  # the dy of the row before
+
+    def rule(prev, _pc, lv, lc, nv, _nc):
+        own, here = lv[1:-1], lc[1:-1]
+        d = here & 15
+        new = own
+        for dd in range(1, 9):
+            dy, dx = int(topology.DY[dd]), int(topology.DX[dd])
+            src = (_split(lv) if dy == 0 else prev if dy == before
+                   else _split(nv))
+            new = torch.where(d == dd, src[dx + 1], new)
+        return torch.where(here < 0, own, new)
+
+    return _walk(v_in, code, reverse, RESOLVE_OFF, tile, rule)
+
+
+def strahler_sweep_plain(o_in, code, reverse, tile=SWEEP_TILE):
+    """Plain version of the Strahler-sweep kernel
+    (``csrc/strahler_sweep.cu``).  ``code``: int8 codes 0..8.  ``tile``: as
+    in :func:`resolve_sweep_plain`; one sweep is bitwise the kernel's."""
+    (ns, nw, ne), (os_, ow, oe) = accumulation_trios(reverse)
+    zero = torch.zeros((), dtype=o_in.dtype, device=o_in.device)
+
+    def rule(prev, pc, lv, lc, nv, nc):
+        pw, pcen, pe = prev
+        taps = torch.stack([
+            torch.where(pc[1:-1] == ns, pcen, zero),
+            torch.where(pc[:-2] == nw, pw, zero),
+            torch.where(pc[2:] == ne, pe, zero),
+            torch.where(nc[1:-1] == os_, nv[1:-1], zero),
+            torch.where(nc[:-2] == ow, nv[:-2], zero),
+            torch.where(nc[2:] == oe, nv[2:], zero),
+            torch.where(lc[:-2] == 5, lv[:-2], zero),
+            torch.where(lc[2:] == 1, lv[2:], zero)])
+        m = taps.amax(0)
+        cnt = ((taps == m) & (m > 0)).sum(0)
+        upd = torch.where(m == 0, 1, torch.where(cnt >= 2, m + 1, m))
+        o = lv[1:-1]
+        return torch.where(o > 0, torch.maximum(o, upd), zero).to(o.dtype)
+
+    return _walk(o_in, code, reverse, STRAHLER_OFF, tile, rule)
+
+
+def _checked(v_in, code, what):
+    for x, dt, name in ((v_in, torch.int32, "values"),
+                        (code, torch.int8, "code")):
+        if (x.dim() != 2 or x.dtype != dt or not x.is_contiguous()
+                or x.shape != v_in.shape or x.device != v_in.device):
+            raise ValueError(f"{what} {name}: expected a contiguous {dt} "
+                             f"tensor shaped and placed like the values")
+
+
+def _launch(kernel, v_in, code, reverse, what):
+    _checked(v_in, code, what)
+    h, wd = v_in.shape
+    out = torch.empty_like(v_in)
+    if h == 0 or wd == 0:
+        return out
+    kernel.launch(v_in.data_ptr(), code.data_ptr(), out.data_ptr(), h, wd,
+                  int(bool(reverse)), stream_handle(v_in.device))
+    return out
+
+
+def resolve_sweep(v_in, code, reverse):
+    """One directional resolve sweep (down, or up if ``reverse``), out of
+    place.  A CUDA tensor launches ``csrc/resolve_sweep.cu`` (raising if it
+    cannot be built or launched); a CPU tensor runs the plain version."""
+    if not v_in.is_cuda:
+        return resolve_sweep_plain(v_in, code, reverse)
+    return _launch(RESOLVE_SWEEP, v_in, code, reverse, "resolve sweep")
+
+
+def strahler_sweep(o_in, code, reverse):
+    """One directional Strahler sweep (down, or up if ``reverse``), out of
+    place.  A CUDA tensor launches ``csrc/strahler_sweep.cu`` (raising if
+    it cannot be built or launched); a CPU tensor runs the plain version."""
+    if not o_in.is_cuda:
+        return strahler_sweep_plain(o_in, code, reverse)
+    return _launch(STRAHLER_SWEEP, o_in, code, reverse, "Strahler sweep")
+
+
+def _rotations(v0, code, max_rotations, sweep):
+    code = code.contiguous()
+    code_t = transpose_codes(code)
+    return accumulation_rotations(
+        v0.to(torch.int32).contiguous(),
+        lambda v, rev: sweep(v, code, rev),
+        lambda v, rev: sweep(v, code_t, rev), max_rotations)
+
+
+def successor_resolve_info(flowdirs, init, pinned, max_rotations=64,
+                           sweep=resolve_sweep):
+    """Rotations of resolve sweeps from ``V = init`` until one changes
+    nothing; returns ``(values, rotations, converged)`` without raising."""
+    return _rotations(init, pack_codes(flowdirs, pinned), max_rotations,
+                      sweep)
+
+
+def successor_resolve(flowdirs, init, pinned, max_rotations=64,
+                      return_info=False):
+    """Iterate ``V(c) ← V(successor(c))``, pinned cells fixed, to the
+    fixpoint; int32 values.  Raises if ``max_rotations`` rotations do not
+    reach it.  ``return_info`` adds ``(rotations, converged)``.  A code
+    that points off the grid reads -1, as in the reference."""
+    v, rotations, done = successor_resolve_info(flowdirs, init, pinned,
+                                                max_rotations)
+    _require_converged(done, "successor resolve", max_rotations)
+    if return_info:
+        return v, rotations, done
+    return v
+
+
+def strahler_fixpoint_info(flowdirs, max_rotations=64, sweep=strahler_sweep):
+    """Rotations of Strahler sweeps from order 1 on data (0 on nodata,
+    code < 0) until one changes nothing; returns ``(order, rotations,
+    converged)`` without raising."""
+    order0 = (flowdirs >= 0).to(torch.int32)
+    code = flowdirs.clamp(min=0).to(torch.int8)
+    return _rotations(order0, code, max_rotations, sweep)
+
+
+def strahler_fixpoint(flowdirs, max_rotations=64, return_info=False):
+    """Strahler order (int32, 0 on nodata) of a D8 code raster; raises if
+    ``max_rotations`` rotations do not reach the fixpoint.
+    ``return_info`` adds ``(rotations, converged)``."""
+    order, rotations, done = strahler_fixpoint_info(flowdirs, max_rotations)
+    _require_converged(done, "Strahler order", max_rotations)
+    if return_info:
+        return order, rotations, done
+    return order

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels ↔ their plain versions, on a CUDA card.
+"""The ten CUDA kernels ↔ their plain versions, on a CUDA card.
 
 Marked ``gpu``: the kernels have no CPU mode, so without a card and
 ``nvcc`` these tests skip.  On a card, run
@@ -8,7 +8,10 @@ bitwise the plain version's (which reads seams the same way).  The terrain
 kernel's atan attributes are held to rtol 1e-6 (the kernel and torch may
 call different atan implementations), the others bitwise.  The D∞ and
 multi-flow sweeps are bitwise at 1000×1100 in every depth mode (1, a
-window, the whole tile), down and transposed up.
+window, the whole tile), down and transposed up.  Rho8 codes are bitwise
+the plain version's for the same seed (the kernel's ``tanf`` and
+``torch.tan`` on the card agree), and the resolve and Strahler sweeps are
+bitwise, down and transposed up, and so are their fixpoints.
 """
 
 import numpy as np
@@ -17,8 +20,9 @@ import torch
 
 from richdem_tpu_torch import _build, synth_np
 from richdem_tpu_torch import synth as tsynth
+from richdem_tpu_torch import methods
 from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs, mfd,
-                                   sweeps, terrain)
+                                   successor, sweeps, terrain)
 
 torch.set_num_threads(1)
 
@@ -234,3 +238,88 @@ def test_flow_accumulation_kernels_match_plain(dev, flow_fields, kind):
     ref, rp, dp = info(*args, w, sweep=plain)
     assert dk and dp and rk == rp
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("topology", ["D8", "D4"])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_rho8_kernel_matches_plain(dev, shape, topology, seed):
+    z, mask = _dem(shape, dev, seed=7)
+    before = flowdirs.RHO8.launches
+    got = flowdirs.rho8_core(z, mask, 1.5, seed, topology)
+    torch.cuda.synchronize()
+    assert flowdirs.RHO8.launches == before + 1
+    diag = flowdirs.rho8_diagonal(shape, seed, dev)
+    assert torch.equal(got, flowdirs.rho8_plain(z, mask, 1.5, diag,
+                                                topology))
+    assert torch.equal(got == -1, mask)
+
+
+@pytest.fixture(scope="module")
+def succ_codes(dev):
+    """D8 codes of an ε-filled 1000×1100 Perlin DEM with nodata holes."""
+    z, mask = _dem((1000, 1100), dev, seed=8)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=1e-3)
+    assert done
+    return flowdirs.d8_core(filled, mask)
+
+
+def _resolve_start(fd, kind):
+    fd_eff = successor.effective_codes(fd)
+    pinned = fd_eff == 0
+    if kind == "watersheds":
+        idx = torch.arange(fd.numel(), dtype=torch.int32,
+                           device=fd.device).view(fd.shape)
+        return fd_eff, torch.where(pinned, idx, -1), pinned
+    seeds = torch.from_numpy(np.random.default_rng(8).random(
+        tuple(fd.shape)) < 0.01).to(fd.device)
+    return fd_eff, seeds.to(torch.int32), seeds | pinned
+
+
+@pytest.mark.parametrize("kind", ["watersheds", "upslope"])
+def test_resolve_sweep_kernel_matches_plain(dev, succ_codes, kind):
+    fd_eff, init, pinned = _resolve_start(succ_codes, kind)
+    code = successor.pack_codes(fd_eff, pinned)
+    before = successor.RESOLVE_SWEEP.launches
+    vk = successor.resolve_sweep(init, code, False)
+    torch.cuda.synchronize()
+    assert successor.RESOLVE_SWEEP.launches == before + 1
+    assert torch.equal(vk, successor.resolve_sweep_plain(init, code, False))
+    vt, code_t = vk.t().contiguous(), successor.transpose_codes(code)
+    assert torch.equal(successor.resolve_sweep(vt, code_t, True),
+                       successor.resolve_sweep_plain(vt, code_t, True))
+    got, rk, dk = successor.successor_resolve_info(fd_eff, init, pinned)
+    ref, rp, dp = successor.successor_resolve_info(
+        fd_eff, init, pinned, sweep=successor.resolve_sweep_plain)
+    assert dk and dp and rk == rp and torch.equal(got, ref)
+
+
+def test_strahler_sweep_kernel_matches_plain(dev, succ_codes):
+    fd = succ_codes
+    o0 = (fd >= 0).to(torch.int32)
+    code = fd.clamp(min=0).to(torch.int8)
+    before = successor.STRAHLER_SWEEP.launches
+    ok = successor.strahler_sweep(o0, code, False)
+    torch.cuda.synchronize()
+    assert successor.STRAHLER_SWEEP.launches == before + 1
+    assert torch.equal(ok, successor.strahler_sweep_plain(o0, code, False))
+    ot, code_t = ok.t().contiguous(), successor.transpose_codes(code)
+    assert torch.equal(successor.strahler_sweep(ot, code_t, True),
+                       successor.strahler_sweep_plain(ot, code_t, True))
+    got, rk, dk = successor.strahler_fixpoint_info(fd)
+    ref, rp, dp = successor.strahler_fixpoint_info(
+        fd, sweep=successor.strahler_sweep_plain)
+    assert dk and dp and rk == rp and torch.equal(got, ref)
+
+
+def test_methods_match_doubling_and_jacobi(dev, succ_codes):
+    """The entry points on the card against the plain cross-checks."""
+    fd = succ_codes
+    assert torch.equal(methods.watersheds_from_flowdirs(fd),
+                       methods.watersheds_doubling(fd))
+    _, seeds, _ = _resolve_start(fd, "upslope")
+    seeds = seeds > 0
+    assert torch.equal(methods.upslope_cells(seeds, fd),
+                       methods.upslope_doubling(seeds, fd))
+    assert torch.equal(methods.strahler_order(fd),
+                       methods.strahler_jacobi(fd, max_iters=1 << 16))

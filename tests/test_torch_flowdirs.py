@@ -41,7 +41,7 @@ def test_d8_bitwise_vs_d8_core(hw, cellsize, topology):
         synth.perlin_dem(*hw, seed=2, dtype=np.float32), no_data=ND, seed=4)
     z, m = convert.from_numpy(dem, ND, device="cpu")
     got = tflow.d8_flowdirs(torch.from_numpy(dem), no_data=ND,
-                            topology_name=topology,
+                            topology=topology,
                             cellsize=cellsize).numpy()
     want = np.asarray(jax_d8_core(jnp.asarray(dem), jnp.asarray(m.numpy()),
                                   jnp.asarray(cellsize, jnp.float32),
@@ -166,8 +166,13 @@ def test_flow_proportions_vs_jax(method, kw, atol, hw, cellsize, seed):
 
 @pytest.mark.parametrize("method", ["Rho8", "rho4"])
 def test_rho8_is_not_ported_yet(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflow.flow_proportions(torch.zeros(6, 7), method)
+    """Rho8 is ported now (``tests/test_torch_rho8.py``): its proportions
+    are the one-hot proportions of its codes, no longer an error."""
+    z = torch.rand(6, 7)
+    topology = "D4" if method == "rho4" else "D8"
+    got = tflow.flow_proportions(z, method, seed=2)
+    assert torch.equal(got, tflow.proportions_from_d8(
+        tflow.rho8_flowdirs(z, seed=2, topology=topology)))
 
 
 def test_flow_proportions_rejects_unknown_and_needs_holmgren_exponent():

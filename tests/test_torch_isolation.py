@@ -23,13 +23,14 @@ import richdem_tpu_torch as rt
 from richdem_tpu_torch import _build, convert
 from richdem_tpu_torch import synth as tsynth
 from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs, mfd,
-                                   terrain)
+                                   successor, terrain)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP, flats.DIST_SWEEP,
-           terrain.TERRAIN, dinf.DINF_SWEEP, mfd.MFD_SWEEP]
+           terrain.TERRAIN, dinf.DINF_SWEEP, mfd.MFD_SWEEP, flowdirs.RHO8,
+           successor.RESOLVE_SWEEP, successor.STRAHLER_SWEEP]
 
 _ALONE = """
 import os, shutil, sys
@@ -53,6 +54,11 @@ acc = rt.dinf_accumulation_from_angles(ang)
 assert bool(torch.isfinite(rt.twi(acc, slope)).all())
 props = rt.flow_proportions(filled, "Quinn")
 assert float(rt.flow_accumulation_from_props(props).sum()) > 0
+labels = rt.watersheds_from_flowdirs(fd)
+assert int(rt.strahler_order(fd).max()) >= 2
+assert bool(rt.upslope_cells(labels == labels[24, 24], fd).any())
+codes = rt.rho8_flowdirs(filled, seed=1)
+assert bool(((codes >= 0) & (codes <= 8)).all())
 if shutil.which("g++"):
     want = native.fill(dem.astype(np.float64))
     assert np.array_equal(want, filled.numpy().astype(np.float64))
@@ -75,8 +81,8 @@ print("ok")
 def test_port_runs_alone_without_jax(tmp_path):
     """A copy of the package with no ``richdem_tpu/`` beside it: import, the
     pipeline, flat resolution, a terrain attribute, D∞ and Quinn
-    accumulation and (where g++ exists) the port's own native engine, which
-    builds into the copy."""
+    accumulation, the D8 methods, Rho8 and (where g++ exists) the port's
+    own native engine, which builds into the copy."""
     shutil.copytree(os.path.join(REPO, "richdem_tpu_torch"),
                     tmp_path / "richdem_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
@@ -136,6 +142,11 @@ def _entry_points():
         "dinf_accumulation": lambda: dinf.dinf_accumulation(fd, dem),
         "d8_accumulation_doubling":
             lambda: accum.d8_accumulation_doubling(fd),
+        "rho8_flowdirs": lambda: rt.rho8_flowdirs(dem),
+        "watersheds_from_flowdirs":
+            lambda: rt.watersheds_from_flowdirs(fd),
+        "upslope_cells": lambda: rt.upslope_cells(fd == 0, fd),
+        "strahler_order": lambda: rt.strahler_order(fd),
     }
 
 
@@ -175,5 +186,9 @@ def test_cpu_tensors_take_the_plain_version():
     terrain.terrain_attribute(z, "curvature")
     accum.dinf_accumulation_from_angles(flowdirs.dinf_flowdirs(f))
     accum.flow_accumulation_from_props(flowdirs.flow_proportions(f, "Quinn"))
+    codes = flowdirs.rho8_core(f, m, 1.0, 3)
+    rt.watersheds_from_flowdirs(codes)
+    rt.upslope_cells(codes == 0, codes)
+    rt.strahler_order(codes)
     after = [k.launches for k in KERNELS]
     assert after == before

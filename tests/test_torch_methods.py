@@ -1,0 +1,245 @@
+"""Port D8 methods (watersheds, upslope cells, Strahler order) ↔ the JAX
+reference, bitwise.
+
+Three references hold the port: ``richdem_tpu.methods`` on the CPU (its
+pointer doubling and Jacobi Strahler fixpoint), the from-scratch NumPy
+walks of ``tests/reference_impls.py``, and, for the sweeps themselves, the
+TPU engines ``successor_resolve_folded`` and ``strahler_folded`` in
+interpret mode with small folds and strips.  All results are integers and
+every fixpoint is unique on an acyclic code raster, so every comparison is
+exact.  The plain sweeps are also run with 32-column tiles, so that seams
+(read at sweep-start values) fall inside the grid.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from richdem_tpu import methods as jm
+from richdem_tpu import synth
+from richdem_tpu.ops import accum as jaccum
+from richdem_tpu.ops import fill as jfill
+from richdem_tpu.ops import flats as jflats
+from richdem_tpu.ops import flowdirs as jflow
+from richdem_tpu.ops import pallas_folded
+import richdem_tpu_torch as rt
+from richdem_tpu_torch import methods as tm
+from richdem_tpu_torch.ops import accum as tacc
+from richdem_tpu_torch.ops import fill as tfill
+from richdem_tpu_torch.ops import flowdirs as tflow
+from richdem_tpu_torch.ops import successor as S
+
+from tests.reference_impls import (strahler_numpy, successor_table,
+                                   terminal_labels, upslope_numpy)
+
+torch.set_num_threads(1)
+
+ND = -9999.0
+
+
+@functools.lru_cache(maxsize=None)
+def _codes(hw, seed, outward):
+    """D8 codes of an ε-filled Perlin DEM with nodata holes; with
+    ``outward``, the border cells of the top row and of the left column
+    point off the grid."""
+    dem = synth.with_nodata_holes(
+        synth.perlin_dem(*hw, seed=seed, dtype=np.float32), no_data=ND,
+        seed=seed)
+    z = torch.from_numpy(dem)
+    mask = z == ND
+    filled, _, done = tfill.fill_depressions_info(z, mask, eps=1e-3)
+    assert done
+    fd = tflow.d8_core(filled, mask).numpy()
+    if outward:
+        fd[0, 1:][fd[0, 1:] >= 0] = 3   # N, off the grid
+        fd[1:, 0][fd[1:, 0] >= 0] = 1   # W, off the grid
+    return fd
+
+
+CASES = [((64, 80), 8, False), ((96, 200), 3, True)]
+IDS = ["64x80", "96x200-outward"]
+
+
+def _seeds(fd, seed=0):
+    return np.random.default_rng(seed).random(fd.shape) < 0.01
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_watersheds_vs_jax_and_reference(case):
+    fd = _codes(*case)
+    got, rotations, done = rt.watersheds_from_flowdirs(
+        fd, return_info=True, device="cpu")
+    assert got.dtype == torch.int32 and done and rotations >= 1
+    want = np.asarray(jm.watersheds_from_flowdirs(jnp.asarray(fd)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), terminal_labels(fd))
+    np.testing.assert_array_equal(tm.watersheds_doubling(fd, "cpu").numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_upslope_cells_vs_jax_and_reference(case):
+    fd = _codes(*case)
+    seeds = _seeds(fd)
+    got = rt.upslope_cells(seeds, fd, device="cpu")
+    assert got.dtype == torch.bool and int(got.sum()) > int(seeds.sum())
+    want = np.asarray(jm.upslope_cells(jnp.asarray(seeds), jnp.asarray(fd)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), upslope_numpy(seeds, fd))
+    np.testing.assert_array_equal(
+        tm.upslope_doubling(seeds, fd, "cpu").numpy(), want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_strahler_order_vs_jax_and_reference(case):
+    fd = _codes(*case)
+    got = rt.strahler_order(torch.from_numpy(fd))
+    assert got.dtype == torch.int32 and int(got.max()) >= 3
+    want = np.asarray(jm.strahler_order(jnp.asarray(fd)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), strahler_numpy(fd))
+    np.testing.assert_array_equal(tm.strahler_jacobi(fd, device="cpu")
+                                  .numpy(), want)
+    assert (got.numpy()[fd < 0] == 0).all()
+
+
+def test_successor_table_and_effective_codes_vs_jax():
+    fd = _codes((96, 200), 3, True)
+    got = S.successor_table(torch.from_numpy(fd)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jm._successors(
+        jnp.asarray(fd))))
+    np.testing.assert_array_equal(got, successor_table(fd))
+    np.testing.assert_array_equal(
+        S.effective_codes(torch.from_numpy(fd)).numpy(),
+        np.asarray(jm._fd_effective(jnp.asarray(fd))))
+
+
+@pytest.fixture
+def folded_interpret():
+    """The reference's folded engines in interpret mode with 16-row
+    strips, as ``tests/test_pallas_folded.py`` runs them; the cap is
+    restored and the traces dropped afterwards."""
+    old_cap = pallas_folded._STRIP_CAP
+    pallas_folded._STRIP_CAP = 16
+    try:
+        if jax.default_backend() != "tpu":
+            with pltpu.force_tpu_interpret_mode():
+                yield
+        else:
+            yield
+    finally:
+        pallas_folded._STRIP_CAP = old_cap
+        pallas_folded.successor_resolve_folded.clear_cache()
+        pallas_folded.strahler_folded.clear_cache()
+
+
+def test_successor_resolve_vs_folded_interpret(folded_interpret):
+    fd = _codes((64, 80), 8, False)
+    fd_eff = S.effective_codes(torch.from_numpy(fd))
+    pinned = fd_eff == 0
+    idx = torch.arange(fd.size, dtype=torch.int32).view(fd.shape)
+    init = torch.where(pinned, idx, -1)
+    got = S.successor_resolve(fd_eff, init, pinned)
+    want = pallas_folded.successor_resolve_folded(
+        jnp.asarray(fd_eff.numpy()), jnp.asarray(init.numpy()),
+        jnp.asarray(pinned.numpy()), fold_pad=64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_strahler_vs_folded_interpret(folded_interpret):
+    fd = _codes((64, 80), 8, False)
+    got = S.strahler_fixpoint(torch.from_numpy(fd))
+    want = pallas_folded.strahler_folded(jnp.asarray(fd), fold_pad=64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _tile32(plain):
+    return lambda v, code, rev: plain(v, code, rev, tile=32)
+
+
+def test_plain_sweeps_cross_seams():
+    """32-column tiles on a 96×200 raster with nodata holes and cells that
+    point off the grid: six seams a row, each read at sweep-start values.
+    One sweep differs from the one-tile sweep, the fixpoints do not."""
+    fd = _codes((96, 200), 3, True)
+    t = torch.from_numpy(fd)
+    fd_eff = S.effective_codes(t)
+    pinned = fd_eff == 0
+    init = torch.where(pinned, torch.arange(fd.size, dtype=torch.int32)
+                       .view(fd.shape), -1)
+    code = S.pack_codes(fd_eff, pinned)
+    one = S.resolve_sweep_plain(init, code, False, tile=1024)
+    seams = S.resolve_sweep_plain(init, code, False, tile=32)
+    assert not torch.equal(one, seams)
+    lab, r32, done = S.successor_resolve_info(fd_eff, init, pinned,
+                                              sweep=_tile32(
+                                                  S.resolve_sweep_plain))
+    _, r1, _ = S.successor_resolve_info(fd_eff, init, pinned)
+    assert done and r32 >= r1
+    np.testing.assert_array_equal(lab.numpy(), terminal_labels(fd))
+    seeds = torch.from_numpy(_seeds(fd, 1))
+    up, _, done = S.successor_resolve_info(
+        fd_eff, seeds.to(torch.int32), seeds | pinned,
+        sweep=_tile32(S.resolve_sweep_plain))
+    assert done
+    np.testing.assert_array_equal((up > 0).numpy(),
+                                  upslope_numpy(seeds.numpy(), fd))
+    order, _, done = S.strahler_fixpoint_info(
+        t, sweep=_tile32(S.strahler_sweep_plain))
+    assert done
+    np.testing.assert_array_equal(order.numpy(), strahler_numpy(fd))
+
+
+def test_cycle_and_unconverged_raise():
+    fd = np.zeros((6, 7), np.int8)
+    fd[2, 2], fd[2, 3] = 5, 1   # E then W: a 2-cycle
+    fd[3, 3] = 3                # drains into it
+    with pytest.raises(ValueError, match="cycle: 3 cells"):
+        rt.watersheds_from_flowdirs(fd, device="cpu")
+    deep = _codes((64, 80), 8, False)
+    _, rotations, _ = rt.watersheds_from_flowdirs(deep, return_info=True,
+                                                  device="cpu")
+    assert rotations > 2
+    with pytest.raises(RuntimeError, match="did not converge"):
+        rt.watersheds_from_flowdirs(deep, max_rotations=1, device="cpu")
+    with pytest.raises(RuntimeError, match="did not converge"):
+        rt.upslope_cells(_seeds(deep), deep, max_rotations=1, device="cpu")
+    with pytest.raises(RuntimeError, match="did not converge"):
+        rt.strahler_order(deep, max_rotations=1, device="cpu")
+
+
+def test_d8_methods_slice_vs_jax():
+    """The d8_methods path as a whole, ε = 0 fill → D8 → resolve_flats →
+    watersheds, Strahler order, accumulation → upslope cells of the 8
+    interior cells of largest accumulation, composed from the port and
+    from the JAX functions on the CPU: every output bitwise."""
+    z = synth.perlin_dem(64, 96, seed=1, dtype=np.float32)
+    nd = np.zeros(z.shape, bool)
+    jf, _, jdone = jfill.fill_depressions_info(jnp.asarray(z), eps=0.0)
+    jfd = jflats.resolve_flats(jf, jflow.d8_flowdirs(jf))
+    tf_, _, tdone = tfill.fill_depressions_info(torch.from_numpy(z), eps=0.0)
+    tfd = rt.resolve_flats(tf_, tflow.d8_core(tf_, torch.from_numpy(nd)))
+    assert bool(jdone) and tdone
+    np.testing.assert_array_equal(tfd.numpy(), np.asarray(jfd))
+    acc = tacc.d8_accumulation(tfd)
+    np.testing.assert_array_equal(acc.numpy(),
+                                  np.asarray(jaccum.d8_accumulation(jfd)))
+    inner = torch.full_like(acc, -1.0)
+    inner[1:-1, 1:-1] = acc[1:-1, 1:-1]
+    top = torch.sort(inner.reshape(-1), descending=True,
+                     stable=True).indices[:8]
+    gauges = torch.zeros(z.size, dtype=torch.bool)
+    gauges[top] = True
+    gauges = gauges.view(z.shape)
+    for got, want in (
+            (rt.watersheds_from_flowdirs(tfd),
+             jm.watersheds_from_flowdirs(jfd)),
+            (rt.strahler_order(tfd), jm.strahler_order(jfd)),
+            (rt.upslope_cells(gauges, tfd),
+             jm.upslope_cells(jnp.asarray(gauges.numpy()), jfd))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

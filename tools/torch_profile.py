@@ -7,8 +7,9 @@ Run from the repository root on a machine with a card and ``nvcc``:
     python3 tools/torch_profile.py OUT_DIR [PATH ...]
 
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
-``quinn_mfd`` and ``depths`` (all when none is named).  Paths, at 10240² on
-a Perlin DEM (seed 0), each after one warm-up step:
+``quinn_mfd``, ``d8_methods``, ``rho8`` and ``depths`` (all when none is
+named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
+step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
   config 3, ``bench.py``'s default);
@@ -18,7 +19,11 @@ a Perlin DEM (seed 0), each after one warm-up step:
   lakes);
 * ``dinf_twi``, ``quinn_mfd`` — BASELINE.json config 4, ``bench.py``'s
   configs of those names (``chip_smoke.dinf_twi_step``,
-  ``quinn_mfd_step``).
+  ``quinn_mfd_step``);
+* ``d8_methods`` — config 2's step, then watershed labels, Strahler order,
+  D8 accumulation and the upslope cells of 64 gauges
+  (``chip_smoke.d8_methods_step``);
+* ``rho8`` — ε-fill → Rho8 → D8 accumulation (``chip_smoke.rho8_step``).
 
 ``depths`` runs no trace: at 4096² (Perlin seed 0, ε = 1e-2 fill) it times
 the D∞ and Quinn accumulations at in-row scan depths 1, 8, 32 and 0 with
@@ -30,7 +35,7 @@ For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
 step, the device busy time (the union of the kernel, memcpy and memset
 intervals of the trace), the idle share (1 − busy / wall), and device time
-and launch count by group: each of the port's five kernels by its CUDA
+and launch count by group: each of the port's ten kernels by its CUDA
 function name, the rest by the name of the PyTorch kernel.  The card's
 ``name, power.limit`` comes first.  Imports nothing of JAX.
 """
@@ -54,8 +59,12 @@ PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
                 "dist_sweep_kernel": "dist_sweep",
                 "terrain_kernel": "terrain",
                 # flow_sweep_kernel, instantiated per field
-                "DinfField": "dinf_sweep", "MfdField": "mfd_sweep"}
-PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "depths")
+                "DinfField": "dinf_sweep", "MfdField": "mfd_sweep",
+                "rho8_kernel": "rho8",
+                # succ_sweep_kernel, instantiated per rule
+                "Resolve": "resolve_sweep", "Strahler": "strahler_sweep"}
+PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
+         "rho8", "depths")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
 
@@ -163,7 +172,8 @@ def main():
         timeout=60).stdout.strip()
     print(card, flush=True)
 
-    from chip_smoke import dinf_twi_step, quinn_mfd_step
+    from chip_smoke import (d8_methods_step, dinf_twi_step, quinn_mfd_step,
+                            rho8_step)
     from richdem_tpu_torch import (auto_epsilon, make_pipeline,
                                    resolve_flats)
     from richdem_tpu_torch import synth as tsynth
@@ -188,7 +198,9 @@ def main():
     fns = {"main": lambda: step(z), "config2": config2,
            "flats": lambda: resolve_flats(out["filled"], out["flowdirs"]),
            "dinf_twi": lambda: dinf_twi_step(z),
-           "quinn_mfd": lambda: quinn_mfd_step(z)}
+           "quinn_mfd": lambda: quinn_mfd_step(z),
+           "d8_methods": lambda: d8_methods_step(z, eps),
+           "rho8": lambda: rho8_step(z, eps)}
     for name in paths:
         if name == "depths":
             depth_sweep(dev, card)
