@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 Phases, one line each (any failure raises: non-zero exit, no final line):
 
 1. device — the card's ``name, power.limit`` from nvidia-smi;
-2. build — compiles the ten kernels from ``richdem_tpu_torch/csrc`` and
+2. build — compiles the eleven kernels from ``richdem_tpu_torch/csrc`` and
    the port's native engine, all at once (or loads them when the libraries
    are newer than the sources);
 3. kernel vs plain — each kernel against its plain PyTorch version on the
@@ -18,15 +18,22 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    multi-flow sweeps at depths 1, 8 and 0, down and transposed up, Rho8
    and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
    transposed up and their fixpoints); Rho8's diagonal share on 256²
-   planes at θ = 10° and 30° within 0.015 of θ/45;
+   planes at θ = 10° and 30° within 0.015 of θ/45; the scan fill sweep
+   down and up at ε = 0, ε = 1e-3 and D4 (``eps_diag = BIG/2``), also on a
+   48×8300 raster (several chunks of 8192 columns), and its fixpoint
+   against the folded engine's and the native float64 fill (bitwise at
+   ε = 0; at ε = 1e-3 within ``ENGINES_ATOL`` and ``NATIVE_EPS_ATOL``);
 4. native gates — fill bit-exact against the port's copy of the
    single-core C++ engine at 2048×2176 and 4096×4224 (multigrid warm
-   start), then D8 and flat resolution of those ε = 0 fills bitwise against
-   the engine's; accumulation exact at 2048×2176, D8 codes within 1e-5 of
+   start), with both fill engines, then D8 and flat resolution of those
+   ε = 0 fills bitwise against the engine's; accumulation exact at 2048×2176, D8 codes within 1e-5 of
    the cells (float32 slope ties); at 2048×2176 on ε = 1e-2 fills, D∞ and
    Quinn accumulation within rtol 2e-5 of the engine's topological queue
    over the same proportions, and D8 codes through the two-tap scan
-   (``p = 1``, depth 0) bitwise;
+   (``p = 1``, depth 0) bitwise; the walled serpentine pit at 2048² with
+   ε = 2⁻¹⁰ through both fill engines (rotations of each; the scan engine
+   within rtol 1e-6, atol 1e-4 of the folded one and atol 1e-2 of the
+   native engine's float64 fill);
 5. main path — ``make_pipeline((10240, 10240), eps=0, with_twi=True)`` on a
    device Perlin DEM: converged, mass-conserving, every kernel launched;
    three timed steps and the peak device memory;
@@ -54,10 +61,18 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    ``d8_accumulation`` (pyrichdem's ``FlowAccumulation(method="Rho8")``);
    codes sound, mass conserved exactly (the native engine's float64
    accumulation of the codes); three timed steps and the peak memory;
-12. kernels at the paths' shapes — each kernel against its plain version at
+12. api at 10240² — the pyrichdem names on an ``rdarray`` of numpy (Perlin
+   seed 0 with nodata holes) under ``RICHDEM_TPU_FILL_ENGINE=scan``: the
+   CLI ``twi`` verb's sequence (``FillDepressions(epsilon=True)``,
+   ``FlowAccumulation("D8")``, ``TerrainAttribute("slope_radians")``,
+   ``TWI``); mass conserved, history kept, the scan kernel launched; three
+   timed steps, the peak memory and the rotations; then the ε = 0 fill at
+   10240² and the D4 fill at 2048², each bitwise the folded engine's;
+13. kernels at the paths' shapes — each kernel against its plain version at
    10240² (fill also at the 1280² multigrid coarse grid, fill,
    accumulation, distance, D∞, multi-flow, resolve and Strahler sweeps also
-   transposed), then one call of each timed beside its bound.
+   transposed; the scan sweep down on the api DEM at its ε), then one call
+   of each timed beside its bound.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the per-kernel JSON record; the last
@@ -68,6 +83,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -86,6 +102,20 @@ GAUGES = 64  # upslope seeds of the d8_methods path
 JACOBI_SHAPE = (2048, 2176)  # Strahler order against the Jacobi fixpoint
 THETAS = (10.0, 30.0)  # Rho8's unbiasedness planes, degrees
 RHO8_SEEDS = (0, 7, -3)
+SCAN_WIDE = (48, 8300)  # the scan sweep over several chunks of 8192
+SERPENTINE = 2048  # edge of the walled serpentine pit
+#: ε of the serpentine gate: a power of two, so every step of its 2²¹-cell
+#: ramp (up to about 2048) is exact in float32
+SERPENTINE_EPS = 2.0 ** -10
+D4_SIZE = 2048  # edge of the api path's D4 fill
+#: ε > 0 fills of Perlin DEMs: the largest |scan − folded|, and the largest
+#: distance of either to the native engine's float64 fill.  Every float32
+#: ε step rounds (the folded engine once a step, the scan engine twice an
+#: in-row chain and once a row step), and the roundings add up along long
+#: flooded paths: measured 1.7e-4 between the engines and 0.0158 to native
+#: at 1000×1100, ε = 1e-3 (H100 80GB HBM3, 700.00 W).
+ENGINES_ATOL = 1e-3
+NATIVE_EPS_ATOL = 5e-2
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: bandwidth and float32 outside the tensor cores (integer operations are
@@ -113,11 +143,16 @@ F32_FLOPS_S = 67e12
 #:   strahler_sweep     order, code in, order out (4+1+4); 8 compares and
 #:               selects, 7 max, 8 × (compare, and, add), 3 for the update
 #:               and 2 for max(old, upd)
+#:   fill_scan   W, Z in, W out (4+4+4); the vertical candidate 7, the two
+#:               tilts 4 each way, composing and applying two clip maps
+#:               (4 + 2 each way, the scans' share of their steps about 8
+#:               each way), untilting 2, the guard and the choice 7: about
+#:               100 operations
 #: Bytes bound all but rho8 on an H100; operations bound rho8.
 COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
         "dist_sweep": (13, 9), "terrain": (9, 40), "dinf_sweep": (16, 36),
         "mfd_sweep": (44, 40), "rho8": (6, 158), "resolve_sweep": (9, 4),
-        "strahler_sweep": (9, 52)}
+        "strahler_sweep": (9, 52), "fill_scan": (12, 100)}
 
 #: The TPU kernel each CUDA kernel replaces (file:line of the body), and
 #: the other TPU kernels it covers where there are any (a list where there
@@ -139,13 +174,14 @@ REPLACES = {
     "rho8": ("richdem_tpu/ops/pallas_stencils.py:119", None),
     "resolve_sweep": ("richdem_tpu/ops/pallas_folded.py:606", None),
     "strahler_sweep": ("richdem_tpu/ops/pallas_folded.py:729", None),
+    "fill_scan": ("richdem_tpu/ops/pallas_scan.py:876", None),
 }
 #: The path whose launch counts each kernel's record reports.
 PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "dist_sweep": "config2", "terrain": "terrain",
            "dinf_sweep": "dinf_twi", "mfd_sweep": "quinn_mfd",
            "rho8": "rho8", "resolve_sweep": "d8_methods",
-           "strahler_sweep": "d8_methods"}
+           "strahler_sweep": "d8_methods", "fill_scan": "api"}
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
 
@@ -245,6 +281,61 @@ def fill_rotation(w, floor, eps, err, what):
                 f"reverse {reverse}")
         if transposed:
             wk, wp = wk.t().contiguous(), wp.t().contiguous()
+
+
+def scan_sweeps(w, floor, eps, eps_diag, err, what):
+    """A down sweep, then an up sweep of its result, of the scan fill
+    kernel and of its plain version, results and change flags held
+    bitwise; returns the kernel's result."""
+    import torch
+    from richdem_tpu_torch.ops import fill, sweeps
+
+    for reverse in (False, True):
+        fk = torch.zeros(1, dtype=torch.int32, device=w.device)
+        fp = torch.zeros(1, dtype=torch.int32, device=w.device)
+        wk = fill.fill_scan_sweep(w, floor, eps, eps_diag, reverse, fk)
+        wp = sweeps.fill_scan_sweep_plain(w, floor, eps, eps_diag, reverse,
+                                          fp)
+        bitwise("fill_scan", ((wk, wp), (fk, fp)), err,
+                f"{what}, reverse {reverse}")
+        w = wk
+    return w
+
+
+def nodata_holes(shape, seed, dev, n_holes=6):
+    """Circular holes drawn as ``synth_np.with_nodata_holes`` draws them,
+    the mask built on the card (a 10240² mask is not built on the host)."""
+    import torch
+
+    h, w = shape
+    max_radius = max(h, w) // 10
+    rng = np.random.default_rng(seed)
+    y = torch.arange(h, dtype=torch.float64, device=dev)[:, None]
+    x = torch.arange(w, dtype=torch.float64, device=dev)[None, :]
+    mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for _ in range(n_holes):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(1, max(max_radius, 2))
+        mask |= (y - cy) ** 2 + (x - cx) ** 2 <= r * r
+    return mask
+
+
+def serpentine_pit(n):
+    """tests/test_pallas_scan.py's walled serpentine pit, built a row at a
+    time: the only outlet is a notch at (0, 1), and the channel descends
+    one unit a cell along a path through every other row, so the ε-fill
+    level chains cell by cell from the notch along about n²/2 cells."""
+    z = np.full((n, n), 1e6, np.float32)
+    z[0, 1] = 0.5
+    val = 0.0
+    for k, r in enumerate(range(1, n - 1, 2)):
+        seg = val - np.arange(n - 2, dtype=np.float64)
+        z[r, 1:n - 1] = seg if k % 2 == 0 else seg[::-1]
+        val -= n - 2
+        if r + 2 < n - 1:
+            z[r + 1, (n - 2) if k % 2 == 0 else 1] = val
+            val -= 1.0
+    return z
 
 
 def dist_starts(ff, ctx, modes):
@@ -637,6 +728,58 @@ def phase_kernel_vs_plain(dev, err):
         f"(max |diff| {err['terrain']})")
 
 
+def phase_scan_vs_plain(dev, err):
+    """The scan fill sweep against its plain version at 1000×1100 with
+    nodata holes (ε = 0, ε = 1e-3, D4) and on a 48×8300 raster (several
+    chunks), then the scan engine's fixpoint against the folded engine's
+    and the native engine's float64 fill: bitwise at ε = 0; at ε = 1e-3
+    within ENGINES_ATOL of each other and NATIVE_EPS_ATOL of native."""
+    import torch
+    from richdem_tpu_torch import native
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import fill, sweeps
+
+    z, mask = _ragged_dem(dev)
+    shape = f"{RAGGED[0]}x{RAGGED[1]}"
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    floor = torch.where(mask, neg, z).contiguous()
+    w = torch.where(mask, neg, torch.full_like(z, sweeps.BIG)).contiguous()
+    for eps, eps_diag, name in ((0.0, 0.0, "eps 0"), (1e-3, 1e-3, "eps 1e-3"),
+                                (0.0, sweeps.BIG / 2, "D4")):
+        scan_sweeps(w, floor, eps, eps_diag, err, f"{shape}, {name}")
+    zw = tsynth.perlin_dem(*SCAN_WIDE, seed=6, device=dev)
+    mw = torch.from_numpy(np.random.default_rng(6).random(SCAN_WIDE)
+                          < 0.01).to(dev)
+    scan_sweeps(torch.where(mw, neg, torch.full_like(zw, sweeps.BIG)),
+                torch.where(mw, neg, zw), 1e-3, 1e-3, err,
+                f"{SCAN_WIDE[0]}x{SCAN_WIDE[1]}, eps 1e-3")
+    log("kernel-vs-plain", f"scan fill sweep down and up: bitwise at {shape} "
+        f"(eps 0, eps 1e-3, D4) and at {SCAN_WIDE[0]}x{SCAN_WIDE[1]} "
+        "(two chunks of 8192 columns)")
+    dem64 = z.double().cpu().numpy()
+    for eps in (0.0, 1e-3):
+        got, it_s, done_s = fill.fill_depressions_info(z, mask, eps=eps,
+                                                       engine="scan")
+        ref, it_f, done_f = fill.fill_depressions_info(z, mask, eps=eps,
+                                                       engine="folded")
+        want = native.fill(dem64, no_data=ND, eps=eps)
+        d_native = [float(np.max(np.abs(x.cpu().numpy() - want)))
+                    for x in (got, ref)]
+        same = torch.equal(got, ref)
+        if not (done_s and done_f) or (eps == 0.0 and not (
+                same and d_native[0] == 0.0)) or max_abs(
+                    got, ref) > ENGINES_ATOL or max(d_native) > \
+                NATIVE_EPS_ATOL:
+            raise AssertionError(f"scan fixpoint at eps {eps}: scan vs "
+                                 f"folded {max_abs(got, ref)}, vs native "
+                                 f"{d_native}")
+        log("kernel-vs-plain", f"scan fixpoint {shape} eps {eps}: "
+            f"{'bitwise' if same else f'max |diff| {max_abs(got, ref)}'} "
+            f"against the folded engine; max |diff| to the native float64 "
+            f"fill: scan {d_native[0]}, folded {d_native[1]} ({it_s} scan "
+            f"rotations of 2 sweeps, {it_f} folded rotations of 4)")
+
+
 def phase_native(dev):
     import torch
     from richdem_tpu_torch import native, synth_np
@@ -653,8 +796,15 @@ def phase_native(dev):
         multigrid = max(h, w) >= fill.MULTISCALE_MIN
         if not (done and np.array_equal(got64, want)):
             raise AssertionError(f"fill {h}x{w} differs from native")
-        log("native", f"fill {h}x{w} eps=0 bit-exact vs native "
-            f"({iters} rotations, multigrid {multigrid})")
+        scan, s_iters, s_done = fill.fill_depressions_info(z, eps=0.0,
+                                                           engine="scan")
+        if not (s_done and np.array_equal(
+                scan.cpu().numpy().astype(np.float64), want)):
+            raise AssertionError(f"scan fill {h}x{w} differs from native")
+        del scan
+        log("native", f"fill {h}x{w} eps=0 bit-exact vs native with both "
+            f"engines (folded {iters} rotations of 4 sweeps, scan {s_iters} "
+            f"of 2; multigrid {multigrid})")
 
         # flat resolution of the ε = 0 fill's flat lakes
         nd = torch.zeros_like(z, dtype=torch.bool)
@@ -766,6 +916,50 @@ def phase_native_flow(dev):
                              "native")
     log("native", f"D8 codes through the two-tap scan (p = 1, depth 0) "
         f"{h}x{w}: bitwise equal to native.accum_d8, {rot} rotations")
+
+
+def phase_serpentine(dev, card):
+    """The walled serpentine pit at SERPENTINE² through both fill engines
+    at ε = SERPENTINE_EPS: each converges; the scan engine within rtol
+    1e-6, atol 1e-4 of the folded one and atol 1e-2 of the native engine's
+    float64 fill; the rotations and host times of each."""
+    import torch
+    from richdem_tpu_torch import native
+    from richdem_tpu_torch.ops import fill
+
+    n = SERPENTINE
+    dem = serpentine_pit(n)
+    z = torch.from_numpy(dem).to(dev)
+    res = {}
+    for engine in ("scan", "folded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, iters, done = fill.fill_depressions_info(
+            z, eps=SERPENTINE_EPS, max_iters=4096, engine=engine)
+        torch.cuda.synchronize()
+        if not done:
+            raise AssertionError(f"serpentine: the {engine} engine did not "
+                                 "converge")
+        res[engine] = (got, iters, time.perf_counter() - t0)
+    scan, folded = res["scan"][0], res["folded"][0]
+    diff = max_abs(scan, folded)
+    if not torch.allclose(scan, folded, rtol=1e-6, atol=1e-4):
+        raise AssertionError(f"serpentine: the engines differ by {diff}")
+    want = native.fill(dem.astype(np.float64), eps=SERPENTINE_EPS)
+    got = scan.cpu().numpy().astype(np.float64)
+    ndiff = float(np.max(np.abs(got - want)))
+    if ndiff > 1e-2:
+        raise AssertionError(f"serpentine: scan differs from native by "
+                             f"{ndiff}")
+    top = float(scan[z < 1e6].max())
+    log("serpentine", f"{n}x{n} walled serpentine pit, eps 2^-10 (ramp top "
+        f"{top}): scan "
+        f"{res['scan'][1]} rotations of 2 sweeps in {res['scan'][2]:.3f} s, "
+        f"folded {res['folded'][1]} rotations of 4 sweeps in "
+        f"{res['folded'][2]:.3f} s (host clock) on [{card}]; scan vs folded "
+        f"{'bitwise' if torch.equal(scan, folded) else f'max |diff| {diff}'}"
+        f"; scan vs native float64 max |diff| {ndiff}")
+    return {k: v[1] for k, v in res.items()}
 
 
 def phase_main(dev, card, kernels):
@@ -1044,11 +1238,13 @@ def phase_terrain(dev, card, z, kernels):
 
 def time_kernel(name, kern, plain, card, times, what):
     """One call of ``kern`` timed (after a warm-up call) beside its plain
-    version and the bound of its work at MAIN², from ``COST``."""
+    version and the bound of its work at MAIN², from ``COST``; returns the
+    plain version's result."""
     n = MAIN * MAIN
     kern()
     ms = cuda_ms(kern, reps=5)
-    plain_ms = cuda_ms(plain, reps=1)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.setdefault("plain", plain()), reps=1)
     by_bytes = COST[name][0] * n / HBM_BYTES_S
     by_ops = COST[name][1] * n / F32_FLOPS_S
     bound = max(by_bytes, by_ops) * 1e3
@@ -1058,6 +1254,7 @@ def time_kernel(name, kern, plain, card, times, what):
     log("timing", f"{name} at {what}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms per call; bound {bound:.4f} ms ({bound_by}), "
         f"{100 * bound / ms:.1f} % of it, on [{card}]")
+    return out["plain"]
 
 
 def phase_timing(dev, card, out, z, err, times):
@@ -1380,6 +1577,166 @@ def phase_methods_timing(dev, card, dm, r8, err, times):
         time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
 
 
+def api_step(rd):
+    """The CLI ``twi`` verb's sequence through the pyrichdem names:
+    ε-fill (auto ε), D8 accumulation, slope in radians, TWI."""
+    import richdem_tpu_torch as rt
+
+    filled = rt.FillDepressions(rd, epsilon=True)
+    acc = rt.FlowAccumulation(filled, method="D8")
+    slope = rt.TerrainAttribute(filled, attrib="slope_radians")
+    return {"filled": filled, "accum": acc, "slope": slope,
+            "twi": rt.TWI(acc, slope)}
+
+
+def holed_dem(size, seed, dev):
+    """A size² Perlin DEM with nodata holes, as a host array, and its
+    mask on the card."""
+    import torch
+    from richdem_tpu_torch import synth as tsynth
+
+    z = tsynth.perlin_dem(size, size, seed=seed, device=dev)
+    mask = nodata_holes(z.shape, seed, dev)
+    return torch.where(mask, ND, z).cpu().numpy(), mask
+
+
+def phase_api(dev, card, kernels):
+    """The api path at MAIN² under ``RICHDEM_TPU_FILL_ENGINE=scan`` (the
+    variable restored after): :func:`api_step` on an ``rdarray`` of numpy,
+    then the ε = 0 fill at MAIN² and the D4 fill at D4_SIZE², each bitwise
+    the folded engine's; the fill rotations of both engines at the api
+    path's ε and at ε = 0."""
+    import torch
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops import fill, flowdirs
+
+    old = os.environ.get("RICHDEM_TPU_FILL_ENGINE")
+
+    def engine(name):
+        os.environ["RICHDEM_TPU_FILL_ENGINE"] = name
+
+    def rotations(call):
+        """``call()``'s result and its fill rotations, from the launch
+        counts: (scan rotations of 2 sweeps, folded rotations of 4 on the
+        coarse warm-start grid and the fine grid together)."""
+        scan0, sweep0 = fill.FILL_SCAN.launches, fill.FILL_SWEEP.launches
+        res = call()
+        return res, ((fill.FILL_SCAN.launches - scan0) // 2,
+                     (fill.FILL_SWEEP.launches - sweep0) // 4)
+
+    try:
+        engine("scan")
+        dem, mask = holed_dem(MAIN, 0, dev)
+        rd = rt.rdarray(dem, no_data=ND)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, launches = run_path(
+            "api", kernels,
+            ("fill_scan", "fill_sweep", "d8", "accum_sweep", "terrain"),
+            lambda: api_step(rd))
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        filled, acc = out["filled"].tensor(), out["accum"].tensor()
+        data = ~mask
+        n_data = int(data.sum())
+        for key in ("filled", "accum", "slope", "twi"):
+            x = out[key].tensor()
+            if (tuple(x.shape) != (MAIN, MAIN) or x.device != dev
+                    or not bool(torch.isfinite(x[data]).all())):
+                raise AssertionError(f"api {key}: wrong shape, place or "
+                                     "non-finite values")
+        z = torch.from_numpy(dem).to(dev)
+        if not (bool((filled >= z).all())
+                and torch.equal(filled[mask], z[mask])):
+            raise AssertionError("api: filled surface below the DEM or "
+                                 "nodata changed")
+        fd = flowdirs.d8_flowdirs(filled, no_data=ND)
+        mass = float(acc[(fd == 0) & data].double().sum())
+        if not abs(mass - n_data) <= 1e-6 * n_data:
+            raise AssertionError(f"api: mass not conserved: {mass} vs "
+                                 f"{n_data}")
+        history = out["twi"].metadata["PROCESSING_HISTORY"]
+        calls = [line.split(" | ")[-1] for line in history.splitlines()]
+        if calls != ["FillDepressions(dem, epsilon=True, topology='D8')",
+                     "FlowAccumulation(dem, method='D8', exponent=None)",
+                     "TWI(accum, slope)"]:
+            raise AssertionError(f"api: PROCESSING_HISTORY {calls}")
+        del fd, z
+        ev_secs, host_secs, last = timed_steps(api_step, rd)
+        if not torch.equal(last["twi"].tensor(), out["twi"].tensor()):
+            raise AssertionError("api is not deterministic")
+        del last
+        scan0, rot_s0 = rotations(lambda: rt.FillDepressions(rd).tensor())
+        engine("folded")
+        folded0, rot_f0 = rotations(lambda: rt.FillDepressions(rd).tensor())
+        if not torch.equal(scan0, folded0):
+            raise AssertionError(f"api: the scan engine's eps=0 fill at "
+                                 f"{MAIN}x{MAIN} differs from the folded "
+                                 "engine's")
+        del scan0, folded0
+        _, rot_f = rotations(lambda: rt.FillDepressions(rd, epsilon=True))
+        coarse = launches["fill_sweep"] // 4
+        scan_rot = launches["fill_scan"] // 2
+        fills = (f"fill rotations at the api eps: scan {scan_rot} of 2 "
+                 f"sweeps, folded {rot_f[1] - coarse} of 4; at eps 0: scan "
+                 f"{rot_s0[0]}, folded {rot_f0[1] - rot_s0[1]}; each after "
+                 f"the multigrid warm start's {coarse} and {rot_s0[1]} "
+                 "folded rotations on the coarse grid")
+        dem4, _ = holed_dem(D4_SIZE, 4, dev)
+        rd4 = rt.rdarray(dem4, no_data=ND)
+        folded4 = rt.FillDepressions(rd4, topology="D4").tensor()
+        engine("scan")
+        if not torch.equal(rt.FillDepressions(rd4, topology="D4").tensor(),
+                           folded4):
+            raise AssertionError(f"api: the scan engine's D4 fill at "
+                                 f"{D4_SIZE}x{D4_SIZE} differs from the "
+                                 "folded engine's")
+    finally:
+        if old is None:
+            os.environ.pop("RICHDEM_TPU_FILL_ENGINE", None)
+        else:
+            os.environ["RICHDEM_TPU_FILL_ENGINE"] = old
+    n = MAIN * MAIN
+    eps = rt.auto_epsilon(torch.from_numpy(dem))
+    log("api", f"{MAIN}x{MAIN} Perlin seed 0 with nodata holes ({n - n_data}"
+        f" cells), an rdarray of numpy, RICHDEM_TPU_FILL_ENGINE=scan: "
+        f"FillDepressions(epsilon=True) (auto eps {eps!r}), "
+        f"FlowAccumulation D8, TerrainAttribute slope_radians, TWI; {fills}; "
+        f"{STEPS} steps after one warm-up: "
+        f"{ev_secs} s (CUDA events), {host_secs} s (host); best "
+        f"{n / min(ev_secs):.4e} cells/s; peak allocated {peak_gib:.3f} GiB "
+        f"(warm-up step) on [{card}]; mass {mass:.1f} of {n_data} data "
+        f"cells; history {calls}; eps=0 fill at {MAIN}x{MAIN} and D4 fill at "
+        f"{D4_SIZE}x{D4_SIZE} bitwise the folded engine's; launches "
+        f"{launches}")
+    return launches, dem, mask, eps
+
+
+def phase_scan_timing(dev, card, dem, mask, eps, err, times):
+    """The scan sweep down on the api DEM at the api path's ε, from the
+    fill's start, against its plain version at MAIN² (the timed plain call
+    is the one compared), then timed beside its bound."""
+    import torch
+    from richdem_tpu_torch.ops import fill, sweeps
+
+    z = torch.from_numpy(dem).to(dev)
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    floor = torch.where(mask, neg, z).contiguous()
+    w0 = torch.where(mask, neg, torch.full_like(z, sweeps.BIG)).contiguous()
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    eps = float(np.float32(eps))
+    got = fill.fill_scan_sweep(w0, floor, eps, eps, False, flag)
+    ref = time_kernel(
+        "fill_scan", lambda: fill.fill_scan_sweep(w0, floor, eps, eps, False,
+                                                  flag),
+        lambda: sweeps.fill_scan_sweep_plain(w0, floor, eps, eps, False,
+                                             flag),
+        card, times, f"{MAIN}x{MAIN}, the api DEM at eps {eps!r}")
+    bitwise("fill_scan", ((got, ref),), err,
+            f"{MAIN}x{MAIN}, the api DEM, down")
+    log("timing", f"scan fill sweep at {MAIN}x{MAIN} down on the api DEM: "
+        "bitwise to plain")
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_device()
@@ -1391,12 +1748,14 @@ def main():
     kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP,
                flats.DIST_SWEEP, terrain.TERRAIN, dinf.DINF_SWEEP,
                mfd.MFD_SWEEP, flowdirs.RHO8, successor.RESOLVE_SWEEP,
-               successor.STRAHLER_SWEEP]
+               successor.STRAHLER_SWEEP, fill.FILL_SCAN]
     phase_build(kernels)
     err = {k.name: 0.0 for k in kernels}
     phase_kernel_vs_plain(dev, err)
+    phase_scan_vs_plain(dev, err)
     phase_native(dev)
     phase_native_flow(dev)
+    phase_serpentine(dev, card)
     out, launches, z = phase_main(dev, card, kernels)
     phase_flats_full(out)
     path_launches = {"main": launches,
@@ -1413,6 +1772,9 @@ def main():
     dm = {k: dm[k] for k in ("resolved", "gauges")}  # what timing reads
     r8, path_launches["rho8"] = phase_rho8(dev, card, kernels, z)
     phase_methods_timing(dev, card, dm, r8, err, times)
+    del dm, r8, z
+    path_launches["api"], dem, mask, eps = phase_api(dev, card, kernels)
+    phase_scan_timing(dev, card, dem, mask, eps, err, times)
     if any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
            or m == "richdem_tpu"
            for m in sys.modules if sys.modules[m] is not None):

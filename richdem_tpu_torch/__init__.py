@@ -1,17 +1,32 @@
 """richdem_tpu_torch — the PyTorch / CUDA port of richdem_tpu.
 
 The main path (fill → D8 flow directions → D8 accumulation, plus slope and
-TWI), ε-fill with flat resolution, the terrain attributes, D∞ and
-multi-flow routing with their accumulation (TWI, SPI), Rho8 routing, and
-the D8 methods (watersheds, upslope cells, Strahler order) run on an NVIDIA
-Hopper card through ten hand-written CUDA kernels (``csrc/``), built with
-``nvcc`` at first use, and on the CPU through their plain PyTorch
-versions.  Entry points run where a given tensor lives, and put arrays on
-the card unless asked for another device.  The JAX package ``richdem_tpu``
-stays the reference; this package imports nothing of it and never imports
-JAX.  Importing it touches neither CUDA nor ``nvcc``.
+TWI), both fill engines (folded and scan), ε-fill with flat resolution, the
+terrain attributes, D∞ and multi-flow routing with their accumulation (TWI,
+SPI), Rho8 routing, and the D8 methods (watersheds, upslope cells, Strahler
+order) run on an NVIDIA Hopper card through eleven hand-written CUDA
+kernels (``csrc/``), built with ``nvcc`` at first use, and on the CPU
+through their plain PyTorch versions.  Entry points run where a given
+tensor lives, and put arrays on the card unless asked for another device.
+
+The top-level namespace also mirrors pyrichdem's public API
+(:mod:`richdem_tpu_torch.api`: ``rdarray``, ``FillDepressions``,
+``FlowAccumulation``, ...), so RichDEM scripts port by changing the
+import; ``PipelineConfig`` (:mod:`~richdem_tpu_torch.config`) and
+``python -m richdem_tpu_torch.cli`` complete the surface.  The JAX package
+``richdem_tpu`` stays the reference; this package imports nothing of it
+and never imports JAX.  Importing it touches neither CUDA nor ``nvcc``.
 """
 
+from richdem_tpu_torch.api import (BreachDepressions, FillDepressions,
+                                   FlowAccumFromProps, FlowAccumulation,
+                                   FlowDirections, FlowProportions, LoadGDAL,
+                                   ResolveFlats, SaveGDAL, SPI,
+                                   StrahlerOrder, TerrainAttribute, TWI,
+                                   UpslopeCells, WatershedLabels, rdCompare,
+                                   rdShow)
+from richdem_tpu_torch.config import PipelineConfig
+from richdem_tpu_torch.grid import rd3array, rdarray
 from richdem_tpu_torch.methods import (spi, strahler_order, twi,
                                       upslope_cells,
                                       watersheds_from_flowdirs)
@@ -25,8 +40,8 @@ from richdem_tpu_torch.ops.flowdirs import (dinf_flowdirs, flow_proportions,
 from richdem_tpu_torch.ops.terrain import terrain_attribute
 from richdem_tpu_torch.pipeline import (check_converged, make_pipeline,
                                         terrain_pipeline)
+from richdem_tpu_torch.version import __version__
 
-__version__ = "0.1.0"
 
 __all__ = ["__version__", "make_pipeline", "terrain_pipeline",
            "check_converged", "auto_epsilon", "fill_epsilon",
@@ -34,4 +49,9 @@ __all__ = ["__version__", "make_pipeline", "terrain_pipeline",
            "terrain_attribute", "dinf_flowdirs", "flow_proportions",
            "dinf_accumulation_from_angles", "flow_accumulation_from_props",
            "twi", "spi", "rho8_flowdirs", "watersheds_from_flowdirs",
-           "upslope_cells", "strahler_order"]
+           "upslope_cells", "strahler_order", "rdarray", "rd3array",
+           "LoadGDAL", "SaveGDAL", "FillDepressions", "BreachDepressions",
+           "ResolveFlats", "FlowProportions", "FlowAccumulation",
+           "FlowAccumFromProps", "TerrainAttribute", "FlowDirections",
+           "WatershedLabels", "UpslopeCells", "StrahlerOrder", "TWI", "SPI",
+           "rdCompare", "rdShow", "PipelineConfig"]

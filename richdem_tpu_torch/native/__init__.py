@@ -3,7 +3,9 @@
 The port's own copy of ``richdem_tpu.native``: the exact reference that the
 on-card gates of ``chip_smoke.py`` hold the kernels against (Priority-Flood
 fill, D8 codes, topological-queue accumulation, flat resolution, D∞ angles
-and multi-flow proportions).  It binds only the functions the port uses.
+and multi-flow proportions), and the engine of the API's
+``BreachDepressions`` (Lindsay 2016 breaching, a host op as in the
+reference).  It binds only the functions the port uses.
 
 ``core.cpp`` is built at first use with the reference's g++ flags into
 ``richdem_tpu_torch/build/librichdem_native.so`` (rebuilt when the source is
@@ -21,8 +23,8 @@ import threading
 import numpy as np
 
 __all__ = ["fill", "d8_flowdirs", "accum_d8", "accum_props",
-           "resolve_flats", "flat_mask_and_labels", "dinf_flowdirs",
-           "dinf_props", "mfd_props"]
+           "breach_depressions", "resolve_flats", "flat_mask_and_labels",
+           "dinf_flowdirs", "dinf_props", "mfd_props"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "core.cpp")
@@ -87,6 +89,9 @@ def _load():
                                          ctypes.c_int, ctypes.c_void_p,
                                          ctypes.c_void_p]
         lib.rn_resolve_flats.restype = ctypes.c_int
+        lib.rn_breach.argtypes = [p64, i64, i64, f64, ctypes.c_int,
+                                  ctypes.c_int, f64, i64, f64]
+        lib.rn_breach.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -188,6 +193,31 @@ def mfd_props(dem, no_data=None, exponent=1.0):
     nd, has_nd = _nodata_args(no_data)
     lib.rn_mfd_props(z, props, h, w, nd, has_nd, float(exponent))
     return props
+
+
+_MODES = {"Complete": 0, "Selective": 1, "Constrained": 2}
+
+
+def breach_depressions(dem, no_data=None, mode="Complete", eps=0.0,
+                       max_path_len=None, max_path_depth=None,
+                       fill_remainder=False):
+    """Lindsay 2016 breaching (native); mirrors oracle.breach_depressions."""
+    lib = _load()
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {tuple(_MODES)}")
+    in_dtype = np.asarray(dem).dtype
+    z = np.array(dem, dtype=np.float64, copy=True, order="C")
+    h, w = z.shape
+    nd, has_nd = _nodata_args(no_data)
+    rc = lib.rn_breach(z, h, w, nd, has_nd, _MODES[mode], float(eps),
+                       -1 if max_path_len is None else int(max_path_len),
+                       -1.0 if max_path_depth is None
+                       else float(max_path_depth))
+    if rc != 0:
+        raise RuntimeError(f"rn_breach failed ({rc})")
+    if fill_remainder:
+        z = fill(z, no_data=no_data, eps=max(eps, 0.0))
+    return z.astype(in_dtype)
 
 
 def _flats_impl(dem, flowdirs, no_data, want_mask):

@@ -1,21 +1,32 @@
-"""Depression filling: the fill-sweep kernel's wrapper, the multigrid warm
-start and the fill entry points.
+"""Depression filling: the two fill engines' kernel wrappers, the multigrid
+warm start and the fill entry points.
 
 Counterpart of ``richdem_tpu.ops.fill`` (``auto_epsilon``,
 ``fill_depressions_info``, ``fill_depressions``, ``fill_epsilon``) and of
-``richdem_tpu.ops.pallas_folded``
-(``fill_fixpoint_folded``, ``_coarse_warm_start``, ``_require_converged``),
-which the reference runs on the TPU in their place.  A CUDA tensor goes
-through the hand-written kernel ``csrc/fill_sweep.cu``; a CPU tensor through
-its plain version
-(:func:`richdem_tpu_torch.ops.sweeps.fill_sweep_plain`).  Both reach the
-same fixpoint as the reference, bit for bit at ε = 0.
+``richdem_tpu.ops.pallas_folded`` (``fill_fixpoint_folded``,
+``fill_fixpoint_pallas``, ``_fill_engine``, ``_coarse_warm_start``,
+``_require_converged``) and ``richdem_tpu.ops.pallas_scan``
+(``fill_fixpoint_scan``), which the reference runs on the TPU in their
+place.  Two engines reach the same fixpoint:
+
+* ``"folded"`` (the default): rotations of four directional sweeps, down,
+  up and both transposed (``csrc/fill_sweep.cu``);
+* ``"scan"``: rotations of two sweeps, down and up, each resolving both
+  in-row directions with clamp scans (``csrc/fill_scan.cu``).
+
+``engine=None`` reads ``RICHDEM_TPU_FILL_ENGINE`` per call, the reference's
+switch with the reference's default.  A CUDA tensor goes through the
+hand-written kernels; a CPU tensor through their plain versions
+(:mod:`richdem_tpu_torch.ops.sweeps`).  At ε = 0 every engine gives the
+same bits; at ε > 0 the scan's tilted chains round differently from the
+per-edge steps, within rtol 1e-6, atol 1e-4.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import numpy as np
 import torch
@@ -24,9 +35,12 @@ import torch.nn.functional as F
 from richdem_tpu_torch._build import Kernel, stream_handle
 from richdem_tpu_torch.ops.stencil import as_tensor, nodata_like
 from richdem_tpu_torch.ops.sweeps import (BIG, fill_fixpoint_core,
+                                          fill_scan_fixpoint_core,
+                                          fill_scan_sweep_plain,
                                           fill_sweep_plain)
 
-__all__ = ["FILL_SWEEP", "fill_sweep", "auto_epsilon",
+__all__ = ["FILL_SWEEP", "FILL_SCAN", "FILL_ENGINES", "fill_engine",
+           "fill_sweep", "fill_scan_sweep", "auto_epsilon",
            "fill_depressions_info", "fill_depressions", "fill_epsilon",
            "MULTISCALE_MIN"]
 
@@ -35,9 +49,27 @@ __all__ = ["FILL_SWEEP", "fill_sweep", "auto_epsilon",
 MULTISCALE_MIN = 4096
 
 _P = ctypes.c_void_p
-FILL_SWEEP = Kernel("fill_sweep", "rd_fill_sweep",
-                    [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_float, ctypes.c_float, ctypes.c_int, _P])
+_SWEEP_ARGS = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_float, ctypes.c_int, _P]
+FILL_SWEEP = Kernel("fill_sweep", "rd_fill_sweep", _SWEEP_ARGS)
+FILL_SCAN = Kernel("fill_scan", "rd_fill_scan", _SWEEP_ARGS)
+
+#: The fill engines, by the names of ``RICHDEM_TPU_FILL_ENGINE``.
+FILL_ENGINES = ("folded", "scan")
+#: The engine when neither the call nor the environment names one.
+FILL_DEFAULT = "folded"
+
+
+def fill_engine(engine=None) -> str:
+    """The fill engine a call runs: ``engine`` if given, else
+    ``RICHDEM_TPU_FILL_ENGINE`` read now, else :data:`FILL_DEFAULT`.
+    Raises ``ValueError`` on a name outside :data:`FILL_ENGINES`."""
+    if engine is None:
+        engine = os.environ.get("RICHDEM_TPU_FILL_ENGINE", FILL_DEFAULT)
+    if engine not in FILL_ENGINES:
+        raise ValueError(f"unknown fill engine {engine!r}; expected one of "
+                         f"{FILL_ENGINES}")
+    return engine
 
 
 def _check_raster(x, dtype, name):
@@ -46,14 +78,8 @@ def _check_raster(x, dtype, name):
                          f"got {x.dtype} {tuple(x.shape)}")
 
 
-def fill_sweep(w_in, floor, eps, eps_diag, reverse, flag):
-    """One directional fill sweep (down, or up if ``reverse``) out of place;
-    ORs 1 into the int32 ``flag`` when any cell changed.
-
-    A CUDA tensor launches ``csrc/fill_sweep.cu`` (raising if it cannot be
-    built or launched); a CPU tensor runs the plain version."""
-    if not w_in.is_cuda:
-        return fill_sweep_plain(w_in, floor, eps, eps_diag, reverse, flag)
+def _launch_sweep(kernel, w_in, floor, eps, eps_diag, reverse, flag):
+    """Check a fill sweep's operands and launch ``kernel`` out of place."""
     _check_raster(w_in, torch.float32, "w_in")
     _check_raster(floor, torch.float32, "floor")
     if floor.shape != w_in.shape or floor.device != w_in.device:
@@ -64,10 +90,37 @@ def fill_sweep(w_in, floor, eps, eps_diag, reverse, flag):
     out = torch.empty_like(w_in)
     if h == 0 or wd == 0:
         return out
-    FILL_SWEEP.launch(w_in.data_ptr(), floor.data_ptr(), out.data_ptr(),
-                      flag.data_ptr(), h, wd, float(eps), float(eps_diag),
-                      int(bool(reverse)), stream_handle(w_in.device))
+    kernel.launch(w_in.data_ptr(), floor.data_ptr(), out.data_ptr(),
+                  flag.data_ptr(), h, wd, float(eps), float(eps_diag),
+                  int(bool(reverse)), stream_handle(w_in.device))
     return out
+
+
+def fill_sweep(w_in, floor, eps, eps_diag, reverse, flag):
+    """One directional fill sweep (down, or up if ``reverse``) out of place;
+    ORs 1 into the int32 ``flag`` when any cell changed.
+
+    A CUDA tensor launches ``csrc/fill_sweep.cu`` (raising if it cannot be
+    built or launched); a CPU tensor runs the plain version."""
+    if not w_in.is_cuda:
+        return fill_sweep_plain(w_in, floor, eps, eps_diag, reverse, flag)
+    return _launch_sweep(FILL_SWEEP, w_in, floor, eps, eps_diag, reverse,
+                         flag)
+
+
+def fill_scan_sweep(w_in, floor, eps, eps_diag, reverse, flag):
+    """One scan fill sweep (down, or up if ``reverse``) out of place, both
+    in-row directions resolved; ORs 1 into the int32 ``flag`` when any cell
+    changed.
+
+    A CUDA tensor launches ``csrc/fill_scan.cu`` (raising if it cannot be
+    built or launched); a CPU tensor runs
+    :func:`~richdem_tpu_torch.ops.sweeps.fill_scan_sweep_plain`."""
+    if not w_in.is_cuda:
+        return fill_scan_sweep_plain(w_in, floor, eps, eps_diag, reverse,
+                                     flag)
+    return _launch_sweep(FILL_SCAN, w_in, floor, eps, eps_diag, reverse,
+                         flag)
 
 
 def _f32(x) -> float:
@@ -117,23 +170,33 @@ def auto_epsilon(dem, dtype=None) -> float:
 
 
 def fill_depressions_info(dem, nodata_mask=None, eps=0.0, max_iters=1024,
-                          w0=None, scale_diagonal=False):
+                          w0=None, scale_diagonal=False, eps_diag=None,
+                          engine=None):
     """Depression fill; returns ``(filled, iters, converged)`` with
-    ``iters`` the number of rotations (of four sweeps) run.
+    ``iters`` the number of rotations run (of four sweeps for the folded
+    engine, two for the scan engine).
 
     ``w0``: optional warm start (an upper bound of the answer).  At edge ≥
-    :data:`MULTISCALE_MIN` with no ``w0`` the multigrid warm start is used,
-    unless ``scale_diagonal``.  ``scale_diagonal``: diagonal edges cost
-    ``f32(eps·√2)`` (Planchon–Darboux flavour), the ``eps_diag`` the
-    reference's TPU path hands its fill kernel.  Nodata cells drain and are
-    returned unchanged."""
+    :data:`MULTISCALE_MIN` with no ``w0`` and no diagonal cost of its own,
+    the multigrid warm start is used (on the folded engine, as in the
+    reference).  ``eps_diag``: the cost of a diagonal edge (``eps`` when
+    None); ``BIG / 2`` prices diagonals out (a D4 fill).
+    ``scale_diagonal``: ``eps_diag = f32(eps·√2)`` (Planchon–Darboux
+    flavour).  ``engine``: ``"folded"``, ``"scan"`` or None
+    (:func:`fill_engine`).  Nodata cells drain and are returned
+    unchanged."""
+    eng = fill_engine(engine)
     z32 = dem.to(torch.float32)
     h, wd = z32.shape
     if nodata_mask is None:
         nodata_mask = torch.zeros(z32.shape, dtype=torch.bool,
                                   device=z32.device)
     neg = torch.tensor(-BIG, dtype=torch.float32, device=z32.device)
-    eps_diag = _f32(eps * math.sqrt(2.0)) if scale_diagonal else None
+    if scale_diagonal:
+        if eps_diag is not None:
+            raise ValueError("give scale_diagonal or eps_diag, not both")
+        eps_diag = eps * math.sqrt(2.0)
+    eps_diag = None if eps_diag is None else _f32(eps_diag)
     eps = _f32(eps)
     if (w0 is None and eps_diag is None
             and max(h, wd) >= MULTISCALE_MIN):
@@ -142,8 +205,12 @@ def fill_depressions_info(dem, nodata_mask=None, eps=0.0, max_iters=1024,
         w0 = torch.full_like(z32, BIG)
     floor = torch.where(nodata_mask, neg, z32).contiguous()
     w0 = torch.where(nodata_mask, neg, w0.to(torch.float32)).contiguous()
-    w, iters, done = fill_fixpoint_core(w0, floor, eps, max_iters,
-                                        fill_sweep, eps_diag)
+    if eng == "scan":
+        w, iters, done = fill_scan_fixpoint_core(w0, floor, eps, max_iters,
+                                                 fill_scan_sweep, eps_diag)
+    else:
+        w, iters, done = fill_fixpoint_core(w0, floor, eps, max_iters,
+                                            fill_sweep, eps_diag)
     return torch.where(nodata_mask, z32, w), iters, done
 
 
@@ -156,26 +223,29 @@ def _require_converged(done, what, cap):
 
 
 def fill_depressions(dem, no_data=None, eps=0.0, max_iters=1024,
-                     scale_diagonal=False, device="cuda"):
+                     scale_diagonal=False, device="cuda", engine=None,
+                     eps_diag=None):
     """Plain (or ε) depression fill; returns the filled raster and raises
     if the fixpoint was not reached within ``max_iters`` rotations.
 
     ``dem``: a tensor (the fill runs where it lives) or an array (moved to
-    ``device``)."""
+    ``device``).  ``engine``, ``eps_diag``: see
+    :func:`fill_depressions_info`."""
     dem = as_tensor(dem, device)
     mask = nodata_like(dem, no_data)
     filled, _, done = fill_depressions_info(dem, mask, eps=eps,
                                             max_iters=max_iters,
-                                            scale_diagonal=scale_diagonal)
+                                            scale_diagonal=scale_diagonal,
+                                            eps_diag=eps_diag, engine=engine)
     _require_converged(done, "depression fill", max_iters)
     return filled.to(dem.dtype)
 
 
 def fill_epsilon(dem, no_data=None, eps=None, max_iters=1024,
-                 device="cuda"):
+                 device="cuda", engine=None):
     """ε fill, with :func:`auto_epsilon` of the DEM by default."""
     dem = as_tensor(dem, device)
     if eps is None:
         eps = auto_epsilon(dem)
     return fill_depressions(dem, no_data=no_data, eps=eps,
-                            max_iters=max_iters)
+                            max_iters=max_iters, engine=engine)

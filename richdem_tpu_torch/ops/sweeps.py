@@ -36,6 +36,8 @@ rotation, never on a per-sweep flag.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -45,6 +47,8 @@ from richdem_tpu_torch._build import SWEEP_TILE
 
 __all__ = ["BIG", "ZBIG", "DIST_MODES", "F_DATA", "F_NOFLOW", "F_INFLAT",
            "PERM_TRANSPOSE", "fill_sweep_plain", "fill_fixpoint_core",
+           "clamp_scan_plain", "fill_scan_sweep_plain",
+           "fill_scan_fixpoint_core",
            "seam_columns", "allowed", "dist_sweep_plain", "dist_context",
            "dist_fixpoint_core", "accumulation_trios", "pad_row",
            "accumulation_rotations"]
@@ -126,6 +130,21 @@ def fill_sweep_plain(w_in, floor, eps, eps_diag, reverse, flag,
     return out
 
 
+def _flag_rotations(w, rotation, flag, max_iters):
+    """Apply ``rotation`` from ``w`` until one leaves the change flag at 0;
+    returns ``(w, iters, converged)``.  The flag is zeroed before and read
+    after each rotation (one host sync); ``max_iters`` bounds the loop,
+    never the result."""
+    iters = 0
+    while iters < max_iters:
+        flag.zero_()
+        w = rotation(w)
+        iters += 1
+        if int(flag.item()) == 0:
+            return w, iters, True
+    return w, iters, False
+
+
 def fill_fixpoint_core(w0, floor, eps, max_iters, sweep, eps_diag=None):
     """Iterate rotations of ``sweep`` (down, up, transposed-down,
     transposed-up) until one changes nothing; returns
@@ -139,21 +158,146 @@ def fill_fixpoint_core(w0, floor, eps, max_iters, sweep, eps_diag=None):
     eps_diag = eps if eps_diag is None else eps_diag
     floor_t = floor.t().contiguous()
     flag = torch.zeros(1, dtype=torch.int32, device=w0.device)
-    w = w0.contiguous()
-    iters, converged = 0, False
-    while iters < max_iters:
-        flag.zero_()
+
+    def rotation(w):
         w = sweep(w, floor, eps, eps_diag, False, flag)
         w = sweep(w, floor, eps, eps_diag, True, flag)
         wt = w.t().contiguous()
         wt = sweep(wt, floor_t, eps, eps_diag, False, flag)
         wt = sweep(wt, floor_t, eps, eps_diag, True, flag)
-        w = wt.t().contiguous()
-        iters += 1
-        if int(flag.item()) == 0:
-            converged = True
-            break
-    return w, iters, converged
+        return wt.t().contiguous()
+
+    return _flag_rotations(w0.contiguous(), rotation, flag, max_iters)
+
+
+# -- the scan engine ---------------------------------------------------------
+#
+# Counterpart of ``richdem_tpu.ops.pallas_scan`` (``_clamp_scan``,
+# ``_fill_scan_kernel``, ``_fill_scan_impl``).  Within a row, with the row
+# before fixed, the Gauss–Seidel limit of the fill is
+#
+#     new[j] = min(wr[j], max(fr[j], min(vc[j], new[j−1]+ε, new[j+1]+ε)))
+#
+# and splits into two directional chains F[j] = clip(F[j∓1] + ε, fr[j],
+# b[j]), b = min(wr, max(fr, vc)).  In tilted coordinates (x − j·ε forward,
+# x + j·ε reverse) each chain is a pure clamp chain F'[j] = clip(F'[j∓1],
+# lo'[j], hi'[j]) from −BIG off the row: compositions of clip maps are
+# clip maps, (lo, hi) of "a then b" being (clip(a.lo, b), clip(a.hi, b)),
+# computed with min and max only.  The composition is exact, so any
+# grouping (a Hillis–Steele scan here, per-thread runs and a block scan in
+# the kernel) gives the same chain bit for bit.
+
+
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _shift(x, d, fill, reverse):
+    """``x`` moved ``d`` places along the chain: out[j] = x[j∓d], ``fill``
+    where that falls off the row."""
+    if reverse:
+        return F.pad(x[d:], (0, d), value=fill)
+    return F.pad(x[:-d], (d, 0), value=fill)
+
+
+def _clamp_prefix(lo, hi, reverse):
+    """Inclusive chain-order composition of the clip maps ``(lo, hi)`` of
+    one row segment, by Hillis–Steele doubling (the identity map is
+    (−∞, +∞))."""
+    n = lo.numel()
+    d = 1
+    while d < n:
+        elo = _shift(lo, d, -math.inf, reverse)
+        ehi = _shift(hi, d, math.inf, reverse)
+        lo, hi = _clip(elo, lo, hi), _clip(ehi, lo, hi)
+        d *= 2
+    return lo, hi
+
+
+def clamp_scan_plain(lo, hi, reverse, chunk=None):
+    """The clamp chain F'[j] = clip(F'[j∓1], lo[j], hi[j]) of one row, from
+    −BIG off the row (forward: from the west; ``reverse``: from the east).
+
+    ``chunk``: scan segments of this many columns in chain order, carrying
+    the chain value from one to the next, as the kernel does; ``None``
+    scans the whole row at once.  Every choice gives the same bits."""
+    n = lo.numel()
+    chunk = n if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    starts = list(range(0, n, chunk))
+    if reverse:
+        starts.reverse()
+    out = torch.empty_like(lo)
+    carry = torch.tensor(-BIG, dtype=lo.dtype, device=lo.device)
+    for s in starts:
+        seg = slice(s, min(s + chunk, n))
+        plo, phi = _clamp_prefix(lo[seg], hi[seg], reverse)
+        out[seg] = _clip(carry, plo, phi)
+        carry = out[seg][0 if reverse else -1]
+    return out
+
+
+def fill_scan_sweep_plain(w_in, floor, eps, eps_diag, reverse, flag,
+                          chunk=None):
+    """Plain version of the scan fill-sweep kernel (``csrc/fill_scan.cu``):
+    a loop over rows in sweep order, vectorised across columns.  Each row
+    relaxes the three cells of the row before (new values) and resolves
+    both in-row chains exactly with :func:`clamp_scan_plain`; a lateral
+    value is taken only where it beats ``b`` by more than the guard
+    ``(|b| + t_max)·2⁻²¹`` (0 at ε = 0), as the reference does.  No row
+    after the current one is read.  The result is kept at or above the
+    floor: untilting a chain value clamped at the floor, ``(fr − t) + t``,
+    can round an ulp below ``fr``, and the reference returns such cells
+    below the DEM (at ε > 0 only).  Returns the swept raster; ORs 1 into
+    the int32 ``flag`` if any cell changed.  ``chunk``: see
+    :func:`clamp_scan_plain` (the result does not depend on it)."""
+    h, wd = w_in.shape
+    dev = w_in.device
+    out = torch.empty_like(w_in)
+    eps_t = torch.tensor(eps, dtype=torch.float32, device=dev)
+    epsd_t = torch.tensor(eps_diag, dtype=torch.float32, device=dev)
+    jeh = torch.arange(wd, dtype=torch.float32, device=dev) * eps_t
+    # the guard's t_max, the row's largest tilt f32(W − 1)·ε: the reference
+    # takes the width of its padded folded row, the port pads nothing
+    tmax = torch.tensor(float(wd - 1), dtype=torch.float32,
+                        device=dev) * eps_t
+    gscale = torch.tensor(2.0 ** -21, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    positive = bool(np.float32(eps) > 0)
+    rows = range(h - 1, -1, -1) if reverse else range(h)
+    prev = torch.full((wd + 2,), -BIG, dtype=torch.float32, device=dev)
+    for r in rows:
+        wr, fr = w_in[r], floor[r]
+        vc = torch.minimum(prev[1:-1] + eps_t,
+                           torch.minimum(prev[:-2], prev[2:]) + epsd_t)
+        b = torch.minimum(wr, torch.maximum(fr, vc))
+        fwd = clamp_scan_plain(fr - jeh, b - jeh, False, chunk) + jeh
+        rev = clamp_scan_plain(fr + jeh, b + jeh, True, chunk) - jeh
+        lat = torch.minimum(fwd, rev)
+        guard = (torch.abs(b) + tmax) * gscale if positive else zero
+        new = torch.maximum(fr, torch.where(lat < b - guard, lat, b))
+        out[r] = new
+        prev = F.pad(new, (1, 1), value=-BIG)
+    flag.bitwise_or_((out != w_in).any().to(torch.int32))
+    return out
+
+
+def fill_scan_fixpoint_core(w0, floor, eps, max_iters, sweep,
+                            eps_diag=None):
+    """Iterate rotations of two scan sweeps, down then up, with no
+    transposes (each sweep resolves both in-row directions), until one
+    changes nothing; returns ``(w, iters, converged)`` with the contract of
+    :func:`fill_fixpoint_core`.  ``sweep`` is the scan kernel's wrapper or
+    its plain version."""
+    eps_diag = eps if eps_diag is None else eps_diag
+    flag = torch.zeros(1, dtype=torch.int32, device=w0.device)
+
+    def rotation(w):
+        w = sweep(w, floor, eps, eps_diag, False, flag)
+        return sweep(w, floor, eps, eps_diag, True, flag)
+
+    return _flag_rotations(w0.contiguous(), rotation, flag, max_iters)
 
 
 def allowed(mode, z, zn, s, sn):

@@ -1,11 +1,13 @@
 """The main path: fill → D8 flow directions → D8 accumulation (+ slope/TWI).
 
 Counterpart of ``richdem_tpu.pipeline`` (``make_pipeline``,
-``terrain_pipeline``, ``check_converged``): same defaults, same nodata
-handling (nodata drains, has zero weight and zero accumulation, and keeps
-its elevation in ``filled``) and the same output keys.  A CUDA tensor runs
-the three hand-written kernels (``csrc/``); a CPU tensor runs their plain
-versions.  There is no other switch.
+``terrain_pipeline``, ``check_converged``, ``resumable_pipeline``): same
+defaults, same nodata handling (nodata drains, has zero weight and zero
+accumulation, and keeps its elevation in ``filled``) and the same output
+keys.  A CUDA tensor runs the hand-written kernels (``csrc/``); a CPU
+tensor runs their plain versions.  The fill engine is
+``RICHDEM_TPU_FILL_ENGINE``'s (:func:`~richdem_tpu_torch.ops.fill.
+fill_engine`).
 """
 
 from __future__ import annotations
@@ -14,13 +16,14 @@ import numpy as np
 import torch
 
 from richdem_tpu_torch.methods import twi as _twi
-from richdem_tpu_torch.ops.accum import d8_accumulation_info
-from richdem_tpu_torch.ops.fill import fill_depressions_info
-from richdem_tpu_torch.ops.flowdirs import d8_core
+from richdem_tpu_torch.ops.accum import d8_accumulation, d8_accumulation_info
+from richdem_tpu_torch.ops.fill import fill_depressions, fill_depressions_info
+from richdem_tpu_torch.ops.flowdirs import d8_core, d8_flowdirs
 from richdem_tpu_torch.ops.stencil import as_tensor, nodata_like
 from richdem_tpu_torch.ops.terrain import terrain_core
 
-__all__ = ["make_pipeline", "terrain_pipeline", "check_converged"]
+__all__ = ["make_pipeline", "terrain_pipeline", "check_converged",
+           "resumable_pipeline"]
 
 
 def _pipeline(z, nodata, eps, cellsize, fill_iters, rounds, with_twi):
@@ -94,3 +97,53 @@ def terrain_pipeline(dem, eps=1e-3, cellsize=1.0, fill_iters=256,
     out = make_pipeline(z.shape, eps, cellsize, fill_iters, with_twi,
                         no_data=no_data, max_rotations=max_rotations)(z)
     return check_converged(out)
+
+
+def _host(x):
+    """A phase's result as the host array the phase cache stores."""
+    return x.detach().cpu().numpy()
+
+
+def resumable_pipeline(dem, cache_dir, grid_id="grid", eps=1e-3,
+                       cellsize=1.0, with_twi=True, no_data=None,
+                       device="cuda"):
+    """fill → flowdirs → accum (→ slope/TWI) with phase-granular
+    checkpoint/resume (SURVEY.md §5.3/5.4: the reference's --cache-dir
+    tile eviction recast as .npy phase dumps).  A rerun after a crash
+    loads finished phases from ``cache_dir`` and computes only the rest;
+    the entries are keyed by a fingerprint of the DEM and the knobs, so a
+    changed input recomputes.  Returns host arrays, as the reference does.
+    ``dem``: a tensor (phases run where it lives) or an array (moved to
+    ``device``)."""
+    from richdem_tpu_torch.checkpoint import PhaseCache, fingerprint_of
+
+    z = as_tensor(dem, device)
+    fp = fingerprint_of(
+        f"eps={eps};cellsize={cellsize};no_data={no_data}", _host(z))
+    cache = PhaseCache(cache_dir, grid_id, fingerprint=fp)
+    nd_mask = nodata_like(z, no_data)
+
+    def on_device(x):
+        return torch.as_tensor(x, device=z.device)
+
+    filled = cache.run(
+        "filled", lambda: _host(fill_depressions(z, no_data=no_data,
+                                                 eps=eps)))
+    fd = cache.run(
+        "flowdirs", lambda: _host(d8_flowdirs(on_device(filled),
+                                              no_data=no_data,
+                                              cellsize=cellsize)))
+    acc = cache.run(
+        "accum", lambda: _host(d8_accumulation(on_device(fd),
+                                               no_data_mask=nd_mask)))
+    out = {"filled": filled, "flowdirs": fd, "accum": acc}
+    if with_twi:
+        slope = cache.run(
+            "slope", lambda: _host(terrain_core(
+                on_device(filled).to(torch.float32), nd_mask, 1.0, cellsize,
+                "slope_radians")))
+        out["slope"] = slope
+        out["twi"] = cache.run(
+            "twi", lambda: _host(_twi(on_device(acc), on_device(slope),
+                                      cellsize=cellsize)))
+    return out

@@ -3,11 +3,18 @@ originals.
 
 The port imports nothing of ``richdem_tpu``, so it carries copies of
 ``topology.py`` (the D8 encoding), ``synth.py`` (as ``synth_np``, the numpy
-DEM generators of the tests and the on-card gates) and ``native/`` (the C++
+DEM generators of the tests and the on-card gates), ``native/`` (the C++
 engine; its answers are held against the original's in
-tests/test_torch_isolation.py and, on the card, in ``chip_smoke.py``).  The
-tables must be equal and the generators bitwise equal.
+tests/test_torch_isolation.py and, on the card, in ``chip_smoke.py``), and,
+for the API, ``provenance.py``, ``checkpoint.py``, ``io/``,
+``oracle/flowdirs.py``, ``oracle/orlandini.py`` and
+``parallel/layout.py``, which are the originals with the package's module
+paths renamed (checked line for line), and ``version.py`` (the same
+version).  The tables must be equal, the generators bitwise equal, and a
+raster written by one package must read back bitwise in the other.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -78,3 +85,126 @@ def test_nodata_holes_bitwise(seed):
                                    n_holes=5)
     assert (got == -9999.0).any()
     np.testing.assert_array_equal(got, want)
+
+
+# -- copies of the API slice's JAX-free modules --------------------------
+
+#: Files of the port that are the reference's file with the package's
+#: module paths renamed, and nothing else.
+VERBATIM = ("provenance.py", "checkpoint.py", "io/__init__.py",
+            "io/npyio.py", "io/asciigrid.py", "io/geotiff.py",
+            "oracle/flowdirs.py", "oracle/orlandini.py",
+            "parallel/layout.py")
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _as_reference(text):
+    """The port's text with its module paths renamed back."""
+    return (text.replace("richdem_tpu_torch.", "richdem_tpu.")
+            .replace("from richdem_tpu_torch import",
+                     "from richdem_tpu import"))
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copies(path):
+    with open(os.path.join(_REPO, "richdem_tpu_torch", path),
+              encoding="utf-8") as fh:
+        copy = fh.read()
+    with open(os.path.join(_REPO, "richdem_tpu", path),
+              encoding="utf-8") as fh:
+        original = fh.read()
+    assert _as_reference(copy) == original
+
+
+def test_version_and_provenance():
+    """One version number, one set of citations, and history lines of one
+    form (``stamp | richdem_tpu <version> | call``) in both packages."""
+    from richdem_tpu import provenance, version
+    from richdem_tpu_torch import provenance as tprov
+    from richdem_tpu_torch import version as tversion
+
+    assert tversion.__version__ == version.__version__
+    assert tversion.PROGRAM_IDENTIFIER.startswith("richdem_tpu_torch ")
+    assert tprov.CITATIONS == provenance.CITATIONS
+    for key in ("Dinf", "d8lad", "priority_flood", "nothing"):
+        assert tprov.cite(key) == provenance.cite(key)
+
+    class Raster:
+        metadata = {"PROCESSING_HISTORY": "earlier"}
+
+    a, b = Raster(), Raster()
+    a.metadata, b.metadata = dict(a.metadata), dict(b.metadata)
+    tprov.add_history(a, "X(dem)")
+    provenance.add_history(b, "X(dem)")
+    got = a.metadata["PROCESSING_HISTORY"].splitlines()
+    want = b.metadata["PROCESSING_HISTORY"].splitlines()
+    assert got[0] == want[0] == "earlier"
+    assert got[1].split(" | ")[1:] == want[1].split(" | ")[1:]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("ext,kw", [
+    (".npz", {}), (".asc", {}), (".tif", {}),
+    (".tif", {"compress": "lzw", "predictor": 3})])
+def test_io_round_trip_across_packages(tmp_path, writer, ext, kw):
+    """A raster written by one package reads back in the other bitwise as
+    in the writer itself (and equal to the data, except in the ten-digit
+    text of ``.asc``), nodata, georeferencing and history included."""
+    from richdem_tpu import io as jio
+    from richdem_tpu.grid import rdarray as jrdarray
+    from richdem_tpu_torch import io as tio
+    from richdem_tpu_torch.grid import rdarray as trdarray
+
+    dem = synth.with_nodata_holes(synth.perlin_dem(21, 34, seed=2),
+                                  no_data=-9999.0, seed=2)
+    meta = {"PROCESSING_HISTORY": "t | richdem_tpu 0.1.0 | X(dem)"}
+    gt = (10.0, 2.0, 0.0, 50.0, 0.0, -2.0)
+    make, mine, other = ((trdarray, tio, jio) if writer == "port"
+                         else (jrdarray, jio, tio))
+    path = tmp_path / f"r{ext}"
+    mine.save(path, make(dem, no_data=-9999.0, geotransform=gt,
+                         metadata=meta), **kw)
+    back, own = other.load(path), mine.load(path)
+    np.testing.assert_array_equal(back.np(), own.np())
+    assert back.np().dtype == own.np().dtype
+    if ext == ".asc":
+        np.testing.assert_allclose(back.np(), dem, rtol=1e-9)
+    else:
+        np.testing.assert_array_equal(back.np(), dem)
+        assert back.metadata == own.metadata
+        assert back.metadata["PROCESSING_HISTORY"] == \
+            meta["PROCESSING_HISTORY"]
+    assert back.no_data == own.no_data == -9999.0
+    assert back.geotransform == own.geotransform
+    np.testing.assert_allclose(back.geotransform, gt)
+
+
+def test_oracle_flowdirs_copy_answers_alike():
+    from richdem_tpu.oracle import flowdirs as jflow
+    from richdem_tpu_torch.oracle import flowdirs as tflow
+
+    dem = synth.with_nodata_holes(synth.perlin_dem(24, 29, seed=5),
+                                  no_data=-9999.0, seed=5)
+    for fn, kw in (("d8_flowdirs", {}), ("dinf_flowdirs", {}),
+                   ("flow_proportions", {"method": "Quinn"})):
+        np.testing.assert_array_equal(
+            getattr(tflow, fn)(dem, no_data=-9999.0, **kw),
+            getattr(jflow, fn)(dem, no_data=-9999.0, **kw))
+
+
+def test_layout_across_packages(tmp_path):
+    """Tiles split by one package merge back in the other."""
+    from richdem_tpu.grid import rdarray as jrdarray
+    from richdem_tpu.parallel import layout as jlayout
+    from richdem_tpu_torch.grid import rdarray as trdarray
+    from richdem_tpu_torch.parallel import layout as tlayout
+
+    dem = synth.perlin_dem(30, 41, seed=6)
+    lay = tlayout.split_to_layout(trdarray(dem), str(tmp_path / "a"),
+                                  (16, 16))
+    np.testing.assert_array_equal(jlayout.merge_by_layout(lay).np(), dem)
+    lay = jlayout.split_to_layout(jrdarray(dem), str(tmp_path / "b"),
+                                  (8, 32))
+    assert tlayout.read_layout(lay) == jlayout.read_layout(lay)
+    np.testing.assert_array_equal(tlayout.merge_by_layout(lay).np(), dem)

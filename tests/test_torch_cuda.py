@@ -1,4 +1,4 @@
-"""The ten CUDA kernels ↔ their plain versions, on a CUDA card.
+"""The eleven CUDA kernels ↔ their plain versions, on a CUDA card.
 
 Marked ``gpu``: the kernels have no CPU mode, so without a card and
 ``nvcc`` these tests skip.  On a card, run
@@ -11,7 +11,11 @@ multi-flow sweeps are bitwise at 1000×1100 in every depth mode (1, a
 window, the whole tile), down and transposed up.  Rho8 codes are bitwise
 the plain version's for the same seed (the kernel's ``tanf`` and
 ``torch.tan`` on the card agree), and the resolve and Strahler sweeps are
-bitwise, down and transposed up, and so are their fixpoints.
+bitwise, down and transposed up, and so are their fixpoints.  The scan
+fill sweep is bitwise its plain version down and up at ε = 0, ε = 1e-3 and
+D4, at widths below 1024, not a multiple of 1024, and above 8192 (several
+chunks of 1024·8 columns), and its ε = 0 fixpoint equals the native
+engine's fill.
 """
 
 import numpy as np
@@ -323,3 +327,58 @@ def test_methods_match_doubling_and_jacobi(dev, succ_codes):
                        methods.upslope_doubling(seeds, fd))
     assert torch.equal(methods.strahler_order(fd),
                        methods.strahler_jacobi(fd, max_iters=1 << 16))
+
+
+SCAN_SHAPES = [(300, 1100), (40, 8300), (1030, 45), (20, 20000)]
+SCAN_COSTS = [(0.0, 0.0), (1e-3, 1e-3), (0.0, sweeps.BIG / 2)]
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+@pytest.mark.parametrize("costs", SCAN_COSTS, ids=["eps0", "eps1e-3", "D4"])
+def test_fill_scan_kernel_matches_plain(dev, shape, costs):
+    eps, eps_diag = costs
+    z, mask = _dem(shape, dev, seed=7)
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    floor = torch.where(mask, neg, z)
+    w = torch.where(mask, neg, torch.full_like(z, sweeps.BIG))
+    for reverse in (False, True):
+        fk = torch.zeros(1, dtype=torch.int32, device=dev)
+        fp = torch.zeros(1, dtype=torch.int32, device=dev)
+        before = fill.FILL_SCAN.launches
+        wk = fill.fill_scan_sweep(w, floor, eps, eps_diag, reverse, fk)
+        wp = sweeps.fill_scan_sweep_plain(w, floor, eps, eps_diag, reverse,
+                                          fp)
+        torch.cuda.synchronize()
+        assert fill.FILL_SCAN.launches == before + 1
+        assert torch.equal(wk, wp) and torch.equal(fk, fp)
+        w = wk
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e-3])
+def test_fill_scan_fixpoint_matches_plain_and_folded(dev, eps):
+    z, mask = _dem((260, 1300), dev, seed=8)
+    got, it_k, done = fill.fill_depressions_info(z, mask, eps=eps,
+                                                 engine="scan")
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    ref, it_p, done_p = sweeps.fill_scan_fixpoint_core(
+        torch.where(mask, neg, torch.full_like(z, sweeps.BIG)),
+        torch.where(mask, neg, z), float(np.float32(eps)), 256,
+        sweeps.fill_scan_sweep_plain)
+    assert done and done_p and it_k == it_p
+    assert torch.equal(got, torch.where(mask, z, ref))
+    folded, _, _ = fill.fill_depressions_info(z, mask, eps=eps,
+                                              engine="folded")
+    if eps == 0.0:
+        assert torch.equal(got, folded)
+    else:
+        assert torch.allclose(got, folded, rtol=1e-6, atol=1e-4)
+
+
+def test_fill_scan_matches_native(dev):
+    from richdem_tpu_torch import native
+
+    dem = synth_np.depression_dem(1024, 1100, seed=9, n_pits=12)
+    got = fill.fill_depressions(torch.from_numpy(dem).to(dev),
+                                engine="scan")
+    want = native.fill(dem.astype(np.float64))
+    assert np.array_equal(got.cpu().numpy().astype(np.float64), want)

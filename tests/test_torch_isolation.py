@@ -23,14 +23,14 @@ import richdem_tpu_torch as rt
 from richdem_tpu_torch import _build, convert
 from richdem_tpu_torch import synth as tsynth
 from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs, mfd,
-                                   successor, terrain)
+                                   orlandini, successor, terrain)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP, flats.DIST_SWEEP,
            terrain.TERRAIN, dinf.DINF_SWEEP, mfd.MFD_SWEEP, flowdirs.RHO8,
-           successor.RESOLVE_SWEEP, successor.STRAHLER_SWEEP]
+           successor.RESOLVE_SWEEP, successor.STRAHLER_SWEEP, fill.FILL_SCAN]
 
 _ALONE = """
 import os, shutil, sys
@@ -59,9 +59,36 @@ assert int(rt.strahler_order(fd).max()) >= 2
 assert bool(rt.upslope_cells(labels == labels[24, 24], fd).any())
 codes = rt.rho8_flowdirs(filled, seed=1)
 assert bool(((codes >= 0) & (codes <= 8)).all())
+import tempfile
+from richdem_tpu_torch import checkpoint, cli, provenance, version
+from richdem_tpu_torch.ops.orlandini import orlandini_flowdirs_device
+from richdem_tpu_torch.oracle.orlandini import orlandini_flowdirs
+from richdem_tpu_torch.parallel import layout
+os.environ["RICHDEM_TPU_FILL_ENGINE"] = "scan"
+rd = rt.rdarray(torch.from_numpy(dem), no_data=-9999.0)
+scan = rt.FillDepressions(rd)
+assert torch.equal(scan.tensor(), filled)
+acc = rt.FlowAccumulation(rt.FillDepressions(rd, epsilon=True), "Dinf")
+assert "FlowAccumulation" in acc.metadata["PROCESSING_HISTORY"]
+del os.environ["RICHDEM_TPU_FILL_ENGINE"]
+f64 = scan.np().astype(np.float64) + np.arange(48)[:, None] * 1e-3
+assert np.array_equal(orlandini_flowdirs_device(f64, device="cpu").numpy(),
+                      orlandini_flowdirs(f64))
+quinn = rt.PipelineConfig(eps=1e-3, metric="Quinn").run(dem, device="cpu")
+assert quinn["accum"].sum() > 0
+tmp = tempfile.mkdtemp()
+rt.SaveGDAL(os.path.join(tmp, "dem.tif"), rt.rdarray(dem))
+cli.main(["--device", "cpu", "pipeline", os.path.join(tmp, "dem.tif"),
+          os.path.join(tmp, "out"), "--cache-dir", os.path.join(tmp, "c")])
+assert rt.LoadGDAL(os.path.join(tmp, "out.accum.npz")).np().max() > 10
+tiles = layout.split_to_layout(rt.rdarray(dem), os.path.join(tmp, "t"),
+                               (16, 16))
+assert np.array_equal(layout.merge_by_layout(tiles).np(), dem)
 if shutil.which("g++"):
     want = native.fill(dem.astype(np.float64))
     assert np.array_equal(want, filled.numpy().astype(np.float64))
+    breached = rt.BreachDepressions(rd, eps=1e-6).np()
+    assert (breached <= dem).all()
     qa = native.accum_props(props.numpy().astype(np.float64))
     assert np.allclose(qa, rt.flow_accumulation_from_props(props).numpy(),
                        rtol=2e-5)
@@ -81,8 +108,10 @@ print("ok")
 def test_port_runs_alone_without_jax(tmp_path):
     """A copy of the package with no ``richdem_tpu/`` beside it: import, the
     pipeline, flat resolution, a terrain attribute, D∞ and Quinn
-    accumulation, the D8 methods, Rho8 and (where g++ exists) the port's
-    own native engine, which builds into the copy."""
+    accumulation, the D8 methods, Rho8, the scan fill engine through the
+    API, Orlandini, ``PipelineConfig``, the CLI with its phase cache and
+    the IO and layout copies, and (where g++ exists) the port's own native
+    engine with breaching, which builds into the copy."""
     shutil.copytree(os.path.join(REPO, "richdem_tpu_torch"),
                     tmp_path / "richdem_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
@@ -147,6 +176,13 @@ def _entry_points():
             lambda: rt.watersheds_from_flowdirs(fd),
         "upslope_cells": lambda: rt.upslope_cells(fd == 0, fd),
         "strahler_order": lambda: rt.strahler_order(fd),
+        "fill_scan": lambda: fill.fill_depressions(dem, engine="scan"),
+        "rdarray.tensor": lambda: rt.rdarray(dem).tensor(),
+        "FillDepressions": lambda: rt.FillDepressions(dem).data,
+        "FlowAccumulation": lambda: rt.FlowAccumulation(dem).data,
+        "orlandini_flowdirs_device":
+            lambda: orlandini.orlandini_flowdirs_device(dem),
+        "PipelineConfig.run": lambda: rt.PipelineConfig().run(dem)["accum"],
     }
 
 
@@ -180,6 +216,7 @@ def test_cpu_tensors_take_the_plain_version():
     z = torch.rand(20, 24)
     m = torch.zeros(20, 24, dtype=torch.bool)
     f, _, _ = fill.fill_depressions_info(z, m)
+    fill.fill_depressions_info(z, m, engine="scan")
     fd = flowdirs.d8_core(f, m)
     accum.d8_accumulation(fd)
     flats.resolve_flats(torch.round(z * 4) / 4, fd)

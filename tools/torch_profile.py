@@ -7,8 +7,8 @@ Run from the repository root on a machine with a card and ``nvcc``:
     python3 tools/torch_profile.py OUT_DIR [PATH ...]
 
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
-``quinn_mfd``, ``d8_methods``, ``rho8`` and ``depths`` (all when none is
-named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
+``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths`` and
+``scan_widths`` (all when none is named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
 step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
@@ -23,20 +23,29 @@ step:
 * ``d8_methods`` — config 2's step, then watershed labels, Strahler order,
   D8 accumulation and the upslope cells of 64 gauges
   (``chip_smoke.d8_methods_step``);
-* ``rho8`` — ε-fill → Rho8 → D8 accumulation (``chip_smoke.rho8_step``).
+* ``rho8`` — ε-fill → Rho8 → D8 accumulation (``chip_smoke.rho8_step``);
+* ``api`` — the CLI ``twi`` verb's sequence through the pyrichdem names on
+  an ``rdarray`` of numpy (Perlin seed 0 with nodata holes) under
+  ``RICHDEM_TPU_FILL_ENGINE=scan`` (``chip_smoke.api_step``).
 
 ``depths`` runs no trace: at 4096² (Perlin seed 0, ε = 1e-2 fill) it times
 the D∞ and Quinn accumulations at in-row scan depths 1, 8, 32 and 0 with
 CUDA events (one warm-up call, then the mean of three) and prints one JSON
 line per metric and depth with the rotations and the milliseconds per call,
-from which the port's default depths are chosen.
+from which the port's default depths are chosen.  ``scan_widths`` runs no
+trace either: it times one scan fill sweep (``csrc/fill_scan.cu``, ε =
+1e-3, from the fill's start) on 2048-row Perlin rasters of several widths
+with CUDA events (one warm-up call, then the mean of three) and prints one
+JSON line per width with the microseconds per row step and the number of
+8192-column chunks a row takes.
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
 step, the device busy time (the union of the kernel, memcpy and memset
 intervals of the trace), the idle share (1 − busy / wall), and device time
 and launch count by group: each of the port's ten kernels by its CUDA
-function name, the rest by the name of the PyTorch kernel.  The card's
+function name, the rest by the name of the PyTorch kernel (up to 14
+groups).  The card's
 ``name, power.limit`` comes first.  Imports nothing of JAX.
 """
 
@@ -62,11 +71,14 @@ PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
                 "DinfField": "dinf_sweep", "MfdField": "mfd_sweep",
                 "rho8_kernel": "rho8",
                 # succ_sweep_kernel, instantiated per rule
-                "Resolve": "resolve_sweep", "Strahler": "strahler_sweep"}
+                "Resolve": "resolve_sweep", "Strahler": "strahler_sweep",
+                "fill_scan_kernel": "fill_scan"}
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
-         "rho8", "depths")
+         "rho8", "api", "depths", "scan_widths")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
+SCAN_ROWS = 2048
+SCAN_WIDTHS = (1024, 4096, 8192, 8193, 10240, 16384)
 
 
 def _group(name):
@@ -155,6 +167,33 @@ def depth_sweep(dev, card):
                               "card": card}), flush=True)
 
 
+def scan_widths(dev, card):
+    """Microseconds per row step of one scan fill sweep at each width."""
+    import torch
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import fill, sweeps
+
+    for width in SCAN_WIDTHS:
+        z = tsynth.perlin_dem(SCAN_ROWS, width, seed=0, device=dev)
+        w0 = torch.full_like(z, sweeps.BIG)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False, flag)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False, flag)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 3
+        k = min(-(-width // 1024), 8)
+        print(json.dumps({"scan_widths": width, "rows": SCAN_ROWS,
+                          "chunks": -(-width // (1024 * k)), "ms": ms,
+                          "us_per_row": 1e3 * ms / SCAN_ROWS,
+                          "card": card}), flush=True)
+
+
 def main():
     import torch
 
@@ -172,9 +211,9 @@ def main():
         timeout=60).stdout.strip()
     print(card, flush=True)
 
-    from chip_smoke import (d8_methods_step, dinf_twi_step, quinn_mfd_step,
-                            rho8_step)
-    from richdem_tpu_torch import (auto_epsilon, make_pipeline,
+    from chip_smoke import (api_step, d8_methods_step, dinf_twi_step,
+                            holed_dem, quinn_mfd_step, rho8_step)
+    from richdem_tpu_torch import (auto_epsilon, make_pipeline, rdarray,
                                    resolve_flats)
     from richdem_tpu_torch import synth as tsynth
     from richdem_tpu_torch.ops import fill, flowdirs
@@ -194,8 +233,21 @@ def main():
         fd = flowdirs.d8_core(filled, nd)
         return resolve_flats(filled, fd)
 
+    def api():
+        old = os.environ.get("RICHDEM_TPU_FILL_ENGINE")
+        os.environ["RICHDEM_TPU_FILL_ENGINE"] = "scan"
+        try:
+            return api_step(api_dem)
+        finally:
+            if old is None:
+                del os.environ["RICHDEM_TPU_FILL_ENGINE"]
+            else:
+                os.environ["RICHDEM_TPU_FILL_ENGINE"] = old
+
     out = step(z) if "flats" in paths else None
-    fns = {"main": lambda: step(z), "config2": config2,
+    api_dem = (rdarray(holed_dem(MAIN, 0, dev)[0], no_data=-9999.0)
+               if "api" in paths else None)
+    fns = {"main": lambda: step(z), "config2": config2, "api": api,
            "flats": lambda: resolve_flats(out["filled"], out["flowdirs"]),
            "dinf_twi": lambda: dinf_twi_step(z),
            "quinn_mfd": lambda: quinn_mfd_step(z),
@@ -204,6 +256,9 @@ def main():
     for name in paths:
         if name == "depths":
             depth_sweep(dev, card)
+            continue
+        if name == "scan_widths":
+            scan_widths(dev, card)
             continue
         res = trace(name, fns[name], out_dir)
         res["card"] = card
