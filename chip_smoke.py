@@ -11,7 +11,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 1. device — the card's ``name, power.limit`` from nvidia-smi;
 2. build — compiles the eleven kernels from ``richdem_tpu_torch/csrc`` and
    the port's native engine, all at once (or loads them when the libraries
-   are newer than the sources);
+   are newer than the sources), and reads each kernel's registers and
+   spills from ``ptxas``'s report;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card, on a ragged 1000×1100 Perlin DEM with nodata holes (the distance
    sweep in every mode, the terrain kernel for all 8 attributes, the D∞ and
@@ -56,7 +57,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    equal to pointer doubling, labels constant along every flow path,
    Strahler order satisfying its defining equation at every cell (and
    bitwise equal to the Jacobi fixpoint at 2048×2176); three timed steps,
-   the peak memory and the rotations of each fixpoint;
+   the peak memory, the rotations of each fixpoint, and which engine
+   finished the watershed and upslope calls (the resolve sweeps, or
+   pointer doubling past their cap);
 11. rho8 at 10240²: ε-fill → ``rho8_flowdirs(seed=0)`` →
    ``d8_accumulation`` (pyrichdem's ``FlowAccumulation(method="Rho8")``);
    codes sound, mass conserved exactly (the native engine's float64
@@ -72,7 +75,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    10240² (fill also at the 1280² multigrid coarse grid, fill,
    accumulation, distance, D∞, multi-flow, resolve and Strahler sweeps also
    transposed; the scan sweep down on the api DEM at its ε), then one call
-   of each timed beside its bound.
+   of each timed beside its bound, with each sweep's time per row step and
+   each kernel's registers and spill bytes a thread from the build's
+   ``-Xptxas -v`` report.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the per-kernel JSON record; the last
@@ -182,6 +187,9 @@ PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "dinf_sweep": "dinf_twi", "mfd_sweep": "quinn_mfd",
            "rho8": "rho8", "resolve_sweep": "d8_methods",
            "strahler_sweep": "d8_methods", "fill_scan": "api"}
+#: Kernels redesigned since their port: the row-ring fill and accumulation
+#: sweeps (``csrc/row_ring.cuh``).
+REDESIGNED = ("fill_sweep", "accum_sweep")
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
 
@@ -583,6 +591,7 @@ def phase_build(kernels):
         jobs.append(pool.submit(native._load))
         for job in jobs:
             job.result()
+    RESOURCES.update({k.name: kernel_resources(k) for k in kernels})
     log("build", f"{len(kernels)} kernels and the native engine loaded in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k.name} " + ("cached" if k.build_seconds is None
@@ -1236,10 +1245,26 @@ def phase_terrain(dev, card, z, kernels):
     return launches
 
 
+def kernel_resources(kernel):
+    """Registers and spill bytes a thread of ``kernel``, the largest over
+    its entries, from the build's ``-Xptxas -v`` report."""
+    entries = kernel.resources()
+    if not entries:
+        raise AssertionError(f"no ptxas report of {kernel.name}'s entries")
+    return {key: max(e[key] for e in entries.values())
+            for key in ("registers", "spill_stores", "spill_loads")}
+
+
+#: Per kernel, its registers and spills (``kernel_resources``), filled in
+#: by the build phase.
+RESOURCES = {}
+
+
 def time_kernel(name, kern, plain, card, times, what):
     """One call of ``kern`` timed (after a warm-up call) beside its plain
-    version and the bound of its work at MAIN², from ``COST``; returns the
-    plain version's result."""
+    version and the bound of its work at MAIN², from ``COST``; logs the
+    kernel's registers and spills and, for a sweep, its time per row step
+    (MAIN rows); returns the plain version's result."""
     n = MAIN * MAIN
     kern()
     ms = cuda_ms(kern, reps=5)
@@ -1251,9 +1276,14 @@ def time_kernel(name, kern, plain, card, times, what):
     bound_by = "bytes" if by_bytes >= by_ops else "operations"
     times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=bound_by)
+    res = RESOURCES[name]
+    row = (f"{1e3 * ms / MAIN:.3f} us per row step, "
+           if name.endswith(("_sweep", "_scan")) else "")
     log("timing", f"{name} at {what}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms per call; bound {bound:.4f} ms ({bound_by}), "
-        f"{100 * bound / ms:.1f} % of it, on [{card}]")
+        f"{100 * bound / ms:.1f} % of it; {row}{res['registers']} "
+        f"registers, {res['spill_stores']} B spill stores and "
+        f"{res['spill_loads']} B spill loads a thread; on [{card}]")
     return out["plain"]
 
 
@@ -1379,18 +1409,20 @@ def d8_methods_step(z, eps):
     from richdem_tpu_torch.ops import accum
 
     _, _, resolved, fiters, frot = config2_step(z, eps)
-    labels, lrot, _ = rt.watersheds_from_flowdirs(resolved, return_info=True)
+    labels, lrot, lengine = rt.watersheds_from_flowdirs(resolved,
+                                                        return_info=True)
     order, srot, _ = rt.strahler_order(resolved, return_info=True)
     acc, arot, adone = accum.d8_accumulation_info(resolved,
                                                   torch.ones_like(z))
     if not adone:
         raise AssertionError("d8_methods: accumulation not converged")
     gauges = gauge_seeds(acc)
-    up, urot, _ = rt.upslope_cells(gauges, resolved, return_info=True)
+    up, urot, uengine = rt.upslope_cells(gauges, resolved, return_info=True)
     return {"resolved": resolved, "labels": labels, "order": order,
             "accum": acc, "gauges": gauges, "upslope": up,
             "rotations": {"fill": fiters, "flats": frot, "watersheds": lrot,
-                          "strahler": srot, "accum": arot, "upslope": urot}}
+                          "strahler": srot, "accum": arot, "upslope": urot},
+            "engines": {"watersheds": lengine, "upslope": uengine}}
 
 
 def rho8_step(z, eps):
@@ -1486,7 +1518,8 @@ def phase_d8_methods(dev, card, kernels, z):
             raise AssertionError(f"d8_methods {key} is not deterministic")
     n = MAIN * MAIN
     log("d8_methods", f"{MAIN}x{MAIN} Perlin seed 0, eps {eps!r}: "
-        f"rotations {out['rotations']}; {int(terminal.sum())} basins, "
+        f"rotations {out['rotations']}; finished by {out['engines']}; "
+        f"{int(terminal.sum())} basins, "
         f"largest Strahler order {int(out['order'].max())}, "
         f"{int(out['upslope'].sum())} cells upslope of {GAUGES} gauges; "
         f"labels and upslope bitwise equal to pointer doubling, Strahler "
@@ -1793,7 +1826,9 @@ def main():
          "plain_ms": times[k.name]["plain_ms"],
          "bound_ms": times[k.name]["bound_ms"],
          "bound_by": times[k.name]["bound_by"],
-         "library_ms": None} for k in kernels]}
+         "library_ms": None, **RESOURCES[k.name],
+         **({"redesigned_in": 6} if k.name in REDESIGNED else {})}
+        for k in kernels]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on first
 use with ``nvcc`` into ``build/lib<name>.so`` (rebuilt when the source or a
 shared ``csrc/*.cuh`` header is newer than the library), then loaded with
-:mod:`ctypes`.  Sources include no PyTorch header, so a build takes
+:mod:`ctypes`.  ``ptxas``'s report of each entry's registers and spills
+is kept beside the library (``lib<name>.ptxas.txt``) and read by
+:meth:`Kernel.resources`.  Sources include no PyTorch header, so a build takes
 seconds.  There is no fallback: without ``nvcc``, or when a build fails,
 :meth:`Kernel.function` raises ``RuntimeError``.  Nothing here runs at
 import time.
@@ -13,12 +15,13 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
 
-__all__ = ["Kernel", "SWEEP_TILE", "NVCC_FLAGS", "find_nvcc",
-           "stream_handle"]
+__all__ = ["Kernel", "SWEEP_TILE", "SWEEP_STAGES", "NVCC_FLAGS",
+           "find_nvcc", "ptxas_resources", "stream_handle"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,11 +32,17 @@ BUILD = os.path.join(_PKG, "build")
 #: (stale seams included) is bitwise the kernel's.
 SWEEP_TILE = 1024
 
+#: Rows in the shared-memory ring of the fill and accumulation sweeps
+#: (``csrc/row_ring.cuh``): how far ahead of the row being swept the input
+#: rows are staged.
+SWEEP_STAGES = 16
+
 #: Exact IEEE float32: no FMA contraction (plain fill and D8 codes are held
-#: bitwise), no fast math.
+#: bitwise), no fast math.  ``-Xptxas -v`` only reports resources.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              f"-DRD_TILE={SWEEP_TILE}"]
+              "-Xptxas", "-v", f"-DRD_TILE={SWEEP_TILE}",
+              f"-DRD_STAGES={SWEEP_STAGES}"]
 
 #: Where a CUDA toolkit lives when ``CUDA_HOME`` is unset and ``nvcc`` is
 #: not on ``PATH``.
@@ -71,6 +80,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.library = os.path.join(BUILD, f"lib{name}.so")
+        self.report = os.path.join(BUILD, f"lib{name}.ptxas.txt")
         self.launches = 0
         self.build_seconds = None
         self._fn = None
@@ -101,6 +111,8 @@ class Kernel:
             raise RuntimeError(
                 f"nvcc failed for {self.source} (rc {proc.returncode}):\n"
                 f"{proc.stderr}{proc.stdout}")
+        with open(self.report, "w", encoding="utf-8") as fh:
+            fh.write(proc.stderr + proc.stdout)
         os.replace(tmp, self.library)
         self.build_seconds = time.perf_counter() - t0
 
@@ -119,6 +131,15 @@ class Kernel:
                 self._fn = fn
             return self._fn
 
+    def resources(self) -> dict:
+        """``ptxas``'s report of the last build, by entry function (its
+        mangled name): ``registers``, ``spill_stores`` and ``spill_loads``
+        (bytes a thread).  Empty when there is no report."""
+        if not os.path.exists(self.report):
+            return {}
+        with open(self.report, encoding="utf-8") as fh:
+            return ptxas_resources(fh.read())
+
     def launch(self, *args) -> None:
         """Call the entry point; raise if it reports a CUDA error."""
         rc = self.function()(*args)
@@ -126,6 +147,27 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {rc}")
         self.launches += 1
+
+
+def ptxas_resources(text: str) -> dict:
+    """Registers and spill bytes of each entry function in the output of
+    ``nvcc -Xptxas -v``."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+            entry = None
+    return out
 
 
 def stream_handle(device) -> int:

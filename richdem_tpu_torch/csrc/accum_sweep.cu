@@ -19,49 +19,73 @@
 // the int32 code widening are TPU artefacts and are not carried over.
 //
 // What bounds it on an H100: like the fill sweep, the row-to-row dependency
-// (H dependent row steps per sweep, few blocks).  What the design does about
-// it: one thread per column in a 1024-column tile; each row's sweep-start
-// values, weights and codes are loaded PF rows ahead into registers and
-// staged through a 4-row shared-memory ring, so each row step is one
-// barrier and shared-memory reads.  A new value from across a tile edge is
-// read from `acc_in` (sweep-start), which only delays convergence of the
-// rotation-level fixpoint and keeps runs deterministic.  Convergence is
-// judged by the caller on whole rotations (per-sweep flags chatter in the
-// last bit of float sums), so the kernel has no change flag.
+// (H dependent row steps per sweep, one 1024-column tile per block).  A new
+// value from across a tile edge is read from `acc_in` (sweep-start), which
+// only delays convergence of the rotation-level fixpoint and keeps runs
+// deterministic.  What the design does about it: the rows of `acc_in`,
+// `wgt` and `fd` are staged in a shared-memory ring by a producer warp
+// (row_ring.cuh).  The 256 consumer threads of a full tile whose rows start
+// 16-byte aligned (MODE 2) each own 4 adjacent columns and keep the codes
+// and sweep-start values of rows k and k + 1, and the new values of row
+// k - 1, in registers: a row step loads row k + 1 (a float4 and a word of
+// codes) and the weights, takes the neighbours' values from the adjacent
+// lanes (shared memory at a warp's edge), sums, stores one float4 and
+// meets the other consumers at one barrier.  Other full tiles (MODE 1) and
+// a ragged last tile (MODE 0, the only one that tests its columns) own the
+// columns tx, tx + 256, ... and read rows k - 1, k and k + 1 from the ring.
+// Convergence is judged by the caller on whole rotations (per-sweep flags
+// chatter in the last bit of float sums), so the kernel has no change flag.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_ring.cuh"
+
 #ifndef RD_TILE
 #define RD_TILE 1024
+#endif
+#ifndef RD_STAGES
+#define RD_STAGES 16
 #endif
 
 namespace {
 
 constexpr int TILE = RD_TILE;
-constexpr int PF = 4;  // rows of loads kept in flight per thread
+constexpr int STAGES = RD_STAGES;  // rows in the ring
+constexpr int NT = 256;            // consumers; the producer warp besides
+constexpr int CPT = TILE / NT;     // columns of a consumer
+constexpr int SLOT = rd::slot_elems<float>(TILE);
+// one stage: a slot of `acc_in`, one of `wgt` and one of `fd`
+constexpr int STAGE = 2 * SLOT * 4 + rd::slot_elems<int8_t>(TILE);
+constexpr rd::Layout LAYOUT = rd::layout(STAGES, TILE, STAGE);
+// rows k - 1, k and k + 1 are read at row k
+static_assert(CPT == 4 && STAGES >= 3, "4 columns a consumer, 3+ stages");
 
-struct Row {
-  float a, wt, al, ar;  // acc (own column), weight, acc halos (thread 0)
-  int f, fl, fr;        // codes: own column, halos (thread 0)
-};
+__device__ __forceinline__ int code_of(uint32_t word, int c) {
+  return static_cast<int>((word >> (8 * c)) & 0xffu);
+}
 
-__global__ void __launch_bounds__(TILE)
+template <int MODE>  // 0: a ragged tile; 1: full tiles; 2: aligned full
+__global__ void __launch_bounds__(NT + 32)
 accum_sweep_kernel(const float* __restrict__ acc_in,
                    const float* __restrict__ wgt,
                    const int8_t* __restrict__ fd,
-                   float* __restrict__ acc_out, int h, int w, int reverse) {
-  __shared__ float a_sh[4][TILE + 2];   // sweep-start acc, rows k-1..k+1
-  __shared__ int8_t f_sh[4][TILE + 2];  // codes, same rows
-  __shared__ float w_sh[4][TILE];       // weights, same rows
-  __shared__ float newp[2][TILE + 2];   // new acc of the row before
-  const int tx = threadIdx.x;
-  const int c0 = blockIdx.x * TILE;
-  const int ncols = min(TILE, w - c0);
-  const int c = c0 + tx;
-  const bool own = tx < ncols;
-  const bool has_l = c0 > 0;
-  const bool has_r = c0 + ncols < w;
+                   float* __restrict__ acc_out, int h, int w, int reverse,
+                   int tile0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  float* prev = reinterpret_cast<float*>(smem + LAYOUT.prev);
+  unsigned char* ring = smem + LAYOUT.ring;
+
+  const int tx = threadIdx.x;  // NT consumers, then the producer warp
+  const int cs = (tile0 + blockIdx.x) * TILE;  // the tile's first column
+  const int ncols = min(TILE, w - cs);
+  const bool has_l = cs > 0;
+  const bool has_r = cs + ncols < w;
+  const int first = has_l ? cs - 1 : cs;  // staged columns [first, last)
+  const int last = has_r ? cs + ncols + 1 : cs + ncols;
+  const int sh = has_l ? 1 : 0;
   // code trios (straight, from west source, from east source)
   const int ns = reverse ? 3 : 7, nw = reverse ? 4 : 6, ne = reverse ? 2 : 8;
   const int os = reverse ? 7 : 3, ow = reverse ? 6 : 4, oe = reverse ? 8 : 2;
@@ -70,104 +94,255 @@ accum_sweep_kernel(const float* __restrict__ acc_in,
     return static_cast<size_t>(reverse ? h - 1 - k : k) *
            static_cast<size_t>(w);
   };
-  // rows past the last one read as zero acc / NO_FLOW
-  auto load = [&](int k, Row& v) {
-    v.a = v.wt = v.al = v.ar = 0.0f;
-    v.f = v.fl = v.fr = 0;
-    if (k < h) {
-      const size_t base = row_base(k);
-      if (own) {
-        v.a = acc_in[base + c];
-        v.wt = wgt[base + c];
-        v.f = fd[base + c];
-      }
-      if (tx == 0) {
-        if (has_l) {
-          v.al = acc_in[base + c0 - 1];
-          v.fl = fd[base + c0 - 1];
-        }
-        if (has_r) {
-          v.ar = acc_in[base + c0 + ncols];
-          v.fr = fd[base + c0 + ncols];
-        }
-      }
-    }
+  // staged rows, indexed by the column in the tile (-1 and ncols: the
+  // halo columns)
+  auto acc_row = [&](int s, size_t b) {
+    return reinterpret_cast<const float*>(ring + s * STAGE) +
+           rd::lead(acc_in, b + first) + sh;
   };
-  auto stage = [&](int slot, const Row& v) {
-    if (own) {
-      a_sh[slot][tx + 1] = v.a;
-      f_sh[slot][tx + 1] = static_cast<int8_t>(v.f);
-      w_sh[slot][tx] = v.wt;
-    }
-    if (tx == 0) {
-      a_sh[slot][0] = v.al;
-      f_sh[slot][0] = static_cast<int8_t>(v.fl);
-      a_sh[slot][ncols + 1] = v.ar;
-      f_sh[slot][ncols + 1] = static_cast<int8_t>(v.fr);
-    }
+  auto wgt_row = [&](int s, size_t b) {
+    return reinterpret_cast<const float*>(ring + s * STAGE) + SLOT +
+           rd::lead(wgt, b + first) + sh;
+  };
+  auto fd_row = [&](int s, size_t b) {
+    return reinterpret_cast<const int8_t*>(ring + s * STAGE + 2 * SLOT * 4) +
+           rd::lead(fd, b + first) + sh;
   };
 
-  Row buf[PF];
-#pragma unroll
-  for (int j = 0; j < PF; ++j) load(j, buf[j]);
-  // slot 3 is the row before the first one: off-grid, no flow
-  a_sh[3][tx + 1] = 0.0f;
-  f_sh[3][tx + 1] = 0;
-  newp[1][tx + 1] = 0.0f;
   if (tx == 0) {
-    a_sh[3][0] = a_sh[3][TILE + 1] = 0.0f;
-    f_sh[3][0] = f_sh[3][TILE + 1] = 0;
-    newp[1][0] = newp[1][TILE + 1] = 0.0f;
+    for (int s = 0; s < STAGES; ++s) {
+      rd::bar_init(&full[s], 1);
+      rd::bar_init(&empty[s], 1);
+    }
+    rd::bar_init_fence();
   }
-  stage(0, buf[0]);
-  load(PF, buf[0]);
+  // the row before the first one is off-grid: no flow
+  for (int i = tx; i < 2 * (TILE + 8); i += NT + 32) prev[i] = 0.0f;
+  __syncthreads();
 
-  for (int k0 = 0; k0 < h; k0 += PF) {
+  if (tx >= NT) {  // the producer warp: one thread stages every row
+    if (tx == NT) {
+      int s = 0, phase = 0;
+      for (int k = 0; k < h; ++k) {
+        if (k >= STAGES) rd::bar_wait(&empty[s], phase ^ 1);
+        const size_t b = row_base(k);
+        const rd::Covering ca = rd::covering(acc_in, b + first, b + last);
+        const rd::Covering cw = rd::covering(wgt, b + first, b + last);
+        const rd::Covering cf = rd::covering(fd, b + first, b + last);
+        unsigned char* stage = ring + s * STAGE;
+        rd::bar_expect(&full[s], ca.bytes + cw.bytes + cf.bytes);
+        rd::bulk_copy(stage, ca, &full[s]);
+        rd::bulk_copy(stage + SLOT * 4, cw, &full[s]);
+        rd::bulk_copy(stage + 2 * SLOT * 4, cf, &full[s]);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // slots of rows k - 1, k and k + 1, and the parity of row k + 1's use
+  int sp = STAGES - 1, s0 = 0, sn = 1, pn = 0;
+  rd::bar_wait(&full[0], 0);
+  if constexpr (MODE == 2) {
+    const int lane = tx & 31;
+    const int i0 = 4 * tx;  // this consumer's columns i0 .. i0 + 3
+    const bool has_w = i0 > 0 || has_l, has_e = i0 + 4 < TILE || has_r;
+    // row "k + 1": sweep-start values and codes at i0 .. i0 + 3, and their
+    // neighbours at i0 - 1 and i0 + 4
+    float4 an;
+    float anw, ane;
+    uint32_t fn;
+    int fnw, fne;
+    auto load_next = [&](int s, size_t b) {
+      const float* na = acc_row(s, b);
+      const int8_t* nf = fd_row(s, b);
+      an = *reinterpret_cast<const float4*>(na + i0);
+      fn = *reinterpret_cast<const uint32_t*>(nf + i0);
+      anw = __shfl_up_sync(0xffffffffu, an.w, 1);
+      ane = __shfl_down_sync(0xffffffffu, an.x, 1);
+      fnw = code_of(__shfl_up_sync(0xffffffffu, fn, 1), 3);
+      fne = code_of(__shfl_down_sync(0xffffffffu, fn, 1), 0);
+      if (lane == 0) {
+        anw = has_w ? na[i0 - 1] : 0.0f;
+        fnw = has_w ? static_cast<uint8_t>(nf[i0 - 1]) : 0;
+      }
+      if (lane == 31) {
+        ane = has_e ? na[i0 + 4] : 0.0f;
+        fne = has_e ? static_cast<uint8_t>(nf[i0 + 4]) : 0;
+      }
+    };
+    load_next(0, row_base(0));
+    float4 np = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // new, row k - 1
+    uint32_t fp = 0;  // codes of row k - 1 (none before the first row)
+    int fpw = 0, fpe = 0;
+    // the row before's sweep-start values at i0 - 1 and i0 + 4: across the
+    // tile's seams they stand for its new values there
+    float seam_w = 0.0f, seam_e = 0.0f;
+    for (int k = 0; k < h; ++k) {
+      const size_t b = row_base(k);
+      const bool has_next = k + 1 < h;
+      const float4 ac = an;  // row k, sweep-start
+      const float acw = anw, ace = ane;
+      const uint32_t fc = fn;
+      const int fcw = fnw, fce = fne;
+      if (has_next) {
+        rd::bar_wait(&full[sn], pn);
+        load_next(sn, row_base(k + 1));
+      } else {  // the row after the last one is off-grid: no flow
+        an = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        anw = ane = 0.0f;
+        fn = 0;
+        fnw = fne = 0;
+      }
+      const float4 wt = *reinterpret_cast<const float4*>(wgt_row(s0, b) + i0);
+      const float* pa = prev + 4 + ((k + 1) & 1) * (TILE + 8);  // pa[i]
+      float* qa = prev + 4 + (k & 1) * (TILE + 8);
+      float npw = __shfl_up_sync(0xffffffffu, np.w, 1);
+      float npe = __shfl_down_sync(0xffffffffu, np.x, 1);
+      if (lane == 0) npw = tx == 0 ? seam_w : pa[i0 - 1];
+      if (lane == 31) npe = tx == NT - 1 ? seam_e : pa[i0 + 4];
+      // columns i0 - 1 .. i0 + 4 of the rows before, at and after row k
+      const float pav[6] = {npw, np.x, np.y, np.z, np.w, npe};
+      const int pfv[6] = {fpw, code_of(fp, 0), code_of(fp, 1),
+                          code_of(fp, 2), code_of(fp, 3), fpe};
+      const float lav[6] = {acw, ac.x, ac.y, ac.z, ac.w, ace};
+      const int lfv[6] = {fcw, code_of(fc, 0), code_of(fc, 1),
+                          code_of(fc, 2), code_of(fc, 3), fce};
+      const float nav[6] = {anw, an.x, an.y, an.z, an.w, ane};
+      const int nfv[6] = {fnw, code_of(fn, 0), code_of(fn, 1),
+                          code_of(fn, 2), code_of(fn, 3), fne};
+      const float wv[4] = {wt.x, wt.y, wt.z, wt.w};
+      float nv[4];
 #pragma unroll
-    for (int j = 0; j < PF; ++j) {
-      const int k = k0 + j;
-      if (k < h) {  // uniform across the block
-        const int jn = (j + 1) % PF;
-        stage((k + 1) & 3, buf[jn]);   // row k+1 (zeros past the end)
-        load(k + 1 + PF, buf[jn]);
-        __syncthreads();
-        const int sp = (k + 3) & 3, s0 = k & 3, sn = (k + 1) & 3;
-        const float* pa = newp[(k + 1) & 1];
-        float* qa = newp[k & 1];
-        if (own) {
-          const int8_t* pf = f_sh[sp];
-          const int8_t* lf = f_sh[s0];
-          const int8_t* nf = f_sh[sn];
-          const float* la = a_sh[s0];
-          const float* na = a_sh[sn];
-          float newc = (pf[tx + 1] == ns ? pa[tx + 1] : 0.0f) +
-                       (pf[tx] == nw ? pa[tx] : 0.0f);
-          newc = newc + (pf[tx + 2] == ne ? pa[tx + 2] : 0.0f);
-          float oldb = (nf[tx + 1] == os ? na[tx + 1] : 0.0f) +
-                       (nf[tx] == ow ? na[tx] : 0.0f);
-          oldb = oldb + (nf[tx + 2] == oe ? na[tx + 2] : 0.0f);
-          const float oldl = (lf[tx] == 5 ? la[tx] : 0.0f) +
-                             (lf[tx + 2] == 1 ? la[tx + 2] : 0.0f);
-          const float nv = ((w_sh[s0][tx] + newc) + oldb) + oldl;
-          acc_out[row_base(k) + c] = nv;
-          qa[tx + 1] = nv;
+      for (int c = 0; c < 4; ++c) {
+        const int x = c + 1;
+        float newc = (pfv[x] == ns ? pav[x] : 0.0f) +
+                     (pfv[x - 1] == nw ? pav[x - 1] : 0.0f);
+        newc = newc + (pfv[x + 1] == ne ? pav[x + 1] : 0.0f);
+        float oldb = (nfv[x] == os ? nav[x] : 0.0f) +
+                     (nfv[x - 1] == ow ? nav[x - 1] : 0.0f);
+        oldb = oldb + (nfv[x + 1] == oe ? nav[x + 1] : 0.0f);
+        const float oldl = (lfv[x - 1] == 5 ? lav[x - 1] : 0.0f) +
+                           (lfv[x + 1] == 1 ? lav[x + 1] : 0.0f);
+        nv[c] = ((wv[c] + newc) + oldb) + oldl;
+      }
+      np = make_float4(nv[0], nv[1], nv[2], nv[3]);
+      *reinterpret_cast<float4*>(acc_out + b + cs + i0) = np;
+      if (lane == 0) qa[i0] = nv[0];      // for the warp before
+      if (lane == 31) qa[i0 + 3] = nv[3];  // for the warp after
+      seam_w = acw;
+      seam_e = ace;
+      fp = fc;
+      fpw = fcw;
+      fpe = fce;
+      rd::sync_consumers(NT);  // row k's edge values are in qa
+      if (k > 0 && tx == 0) rd::bar_arrive(&empty[sp]);  // row k - 1 read
+      sp = s0;
+      s0 = sn;
+      if (++sn == STAGES) {
+        sn = 0;
+        pn ^= 1;
+      }
+    }
+  } else {
+    // west and east neighbours of each of the thread's columns exist
+    bool wv[CPT], ev[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int i = tx + j * NT;
+      wv[j] = i > 0 || has_l;
+      ev[j] = i < ncols - 1 || has_r;
+    }
+    for (int k = 0; k < h; ++k) {
+      const size_t b = row_base(k);
+      const bool has_prev = k > 0, has_next = k + 1 < h;
+      if (has_next) rd::bar_wait(&full[sn], pn);
+      const float* la = acc_row(s0, b);
+      const float* lw = wgt_row(s0, b);
+      const int8_t* lf = fd_row(s0, b);
+      const int8_t* pf = fd_row(sp, has_prev ? row_base(k - 1) : b);
+      const size_t bn = has_next ? row_base(k + 1) : b;
+      const float* na = acc_row(sn, bn);
+      const int8_t* nf = fd_row(sn, bn);
+      const float* pa = prev + ((k + 1) & 1) * (TILE + 2);  // pa[i + 1]
+      float* qa = prev + (k & 1) * (TILE + 2);
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int i = tx + j * NT;
+        if (MODE == 1 || i < ncols) {
+          // codes of the rows before and after read as NO_FLOW off the
+          // grid: no branch, so the loads of all columns interleave
+          const int pc = has_prev ? pf[i] : 0;
+          const int pw = has_prev && wv[j] ? pf[i - 1] : 0;
+          const int pe = has_prev && ev[j] ? pf[i + 1] : 0;
+          float newc = (pc == ns ? pa[i + 1] : 0.0f) +
+                       (pw == nw ? pa[i] : 0.0f);
+          newc = newc + (pe == ne ? pa[i + 2] : 0.0f);
+          const int nc = has_next ? nf[i] : 0;
+          const int nwc = has_next && wv[j] ? nf[i - 1] : 0;
+          const int nec = has_next && ev[j] ? nf[i + 1] : 0;
+          float oldb = (nc == os ? na[i] : 0.0f) +
+                       (nwc == ow ? na[i - 1] : 0.0f);
+          oldb = oldb + (nec == oe ? na[i + 1] : 0.0f);
+          const int fw = wv[j] ? lf[i - 1] : 0, fe = ev[j] ? lf[i + 1] : 0;
+          const float oldl = (fw == 5 ? la[i - 1] : 0.0f) +
+                             (fe == 1 ? la[i + 1] : 0.0f);
+          const float nv = ((lw[i] + newc) + oldb) + oldl;
+          acc_out[b + cs + i] = nv;
+          qa[i + 1] = nv;
         }
-        if (tx == 0) {  // seams: sweep-start values of this row
-          qa[0] = a_sh[s0][0];
-          qa[ncols + 1] = a_sh[s0][ncols + 1];
-        }
+      }
+      if (tx == 0) {  // seams: sweep-start values of this row
+        qa[0] = has_l ? la[-1] : 0.0f;
+        qa[ncols + 1] = has_r ? la[ncols] : 0.0f;
+      }
+      rd::sync_consumers(NT);  // row k's new values are in qa
+      if (has_prev && tx == 0) rd::bar_arrive(&empty[sp]);  // row k - 1 read
+      sp = s0;
+      s0 = sn;
+      if (++sn == STAGES) {
+        sn = 0;
+        pn ^= 1;
       }
     }
   }
 }
 
+template <int MODE>
+int launch(const float* acc_in, const float* wgt, const int8_t* fd,
+           float* acc_out, int h, int w, int reverse, int tile0, int tiles,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      accum_sweep_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      LAYOUT.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  accum_sweep_kernel<MODE><<<tiles, NT + 32, LAYOUT.bytes, stream>>>(
+      acc_in, wgt, fd, acc_out, h, w, reverse, tile0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// One launch over the full tiles, one over a ragged last tile.
 extern "C" int rd_accum_sweep(const float* acc_in, const float* wgt,
                               const int8_t* fd, float* acc_out, int h, int w,
                               int reverse, void* stream) {
-  const dim3 grid((w + TILE - 1) / TILE);
-  accum_sweep_kernel<<<grid, TILE, 0, static_cast<cudaStream_t>(stream)>>>(
-      acc_in, wgt, fd, acc_out, h, w, reverse);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int full_tiles = w / TILE;
+  if (full_tiles > 0) {
+    // rows of codes start 16-byte aligned only where w is a multiple of 16
+    const int rc =
+        rd::rows_aligned(w, 1, {acc_in, wgt, fd, acc_out})
+            ? launch<2>(acc_in, wgt, fd, acc_out, h, w, reverse, 0,
+                        full_tiles, st)
+            : launch<1>(acc_in, wgt, fd, acc_out, h, w, reverse, 0,
+                        full_tiles, st);
+    if (rc != 0) return rc;
+  }
+  if (w % TILE == 0) return 0;
+  return launch<0>(acc_in, wgt, fd, acc_out, h, w, reverse, full_tiles, 1,
+                   st);
 }

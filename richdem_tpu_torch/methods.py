@@ -12,7 +12,13 @@ terminal's own flat index, upslope masks pin the seeds and the terminals.
 The reference's other engines, log-depth pointer doubling over the
 successor table and the Jacobi Strahler fixpoint, are kept as plain
 PyTorch (:func:`watersheds_doubling`, :func:`upslope_doubling`,
-:func:`strahler_jacobi`): independent cross-checks, never on a main path.
+:func:`strahler_jacobi`).  Doubling also finishes a watershed or upslope
+call whose sweeps do not reach the fixpoint within ``max_rotations``
+rotations (paths that turn back across rows many times, such as a
+serpentine): it is the reference's own exact engine off the TPU, its answer
+does not depend on where it starts, and it runs on the same device.  The
+call's ``return_info`` says which engine finished, and the ``provenance``
+logger notes it.
 """
 
 from __future__ import annotations
@@ -22,12 +28,13 @@ import math
 import torch
 
 from richdem_tpu_torch import topology
-from richdem_tpu_torch.ops.fill import _require_converged
+from richdem_tpu_torch.ops.fill import _require_converged, _rotation_cap
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor
 from richdem_tpu_torch.ops.successor import (effective_codes,
                                              strahler_fixpoint,
-                                             successor_resolve,
+                                             successor_resolve_info,
                                              successor_table)
+from richdem_tpu_torch.provenance import logger
 
 __all__ = ["twi", "spi", "watersheds_from_flowdirs", "upslope_cells",
            "strahler_order", "watersheds_doubling", "upslope_doubling",
@@ -48,56 +55,77 @@ def spi(accum, slope_radians, cellsize=1.0):
     return accum * cellsize * torch.tan(slope_radians)
 
 
+def _finish(what, rotations, done, shape):
+    """Which engine finished a successor call: the sweeps when they reached
+    the fixpoint, else pointer doubling, which is logged."""
+    if done:
+        return "sweeps"
+    logger.info("%s: the resolve sweeps did not converge within %d "
+                "rotations on a %dx%d grid; pointer doubling finished",
+                what, rotations, *shape)
+    return "doubling"
+
+
 def watersheds_from_flowdirs(flowdirs, max_rotations=64, return_info=False,
                              device="cuda"):
     """Label every cell with the flat index of its terminal cell (int32):
     the drainage-basin partition (reference ``find_watersheds``).  Nodata
     and NO_FLOW cells, and cells pointing off the grid, label themselves.
     Raises ``ValueError`` if the codes hold a cycle (a cell that never
-    reaches a terminal), and ``RuntimeError`` if ``max_rotations``
-    rotations do not reach the fixpoint.  ``return_info`` adds
-    ``(rotations, converged)``.  ``flowdirs``: a tensor (the work runs
-    where it lives) or an array (moved to ``device``)."""
+    reaches a terminal).  When ``max_rotations`` rotations of resolve
+    sweeps do not reach the fixpoint, pointer doubling finishes.
+    ``return_info`` adds ``(rotations, engine)``: the rotations the sweeps
+    took and ``"sweeps"`` or ``"doubling"``.  ``flowdirs``: a tensor (the
+    work runs where it lives) or an array (moved to ``device``)."""
     fd_eff = effective_codes(as_tensor(flowdirs, device))
     pinned = fd_eff == 0
     own = torch.arange(fd_eff.numel(), dtype=torch.int32,
                        device=fd_eff.device).view(fd_eff.shape)
     init = torch.where(pinned, own, -1)
-    labels, rotations, done = successor_resolve(fd_eff, init, pinned,
-                                                max_rotations,
-                                                return_info=True)
-    cyclic = int((labels < 0).sum())
+    labels, rotations, done = successor_resolve_info(fd_eff, init, pinned,
+                                                     max_rotations)
+    engine = _finish("watersheds", rotations, done, fd_eff.shape)
+    if done:
+        cyclic = int((labels < 0).sum())
+    else:
+        # a label that is not a terminal sits on a cycle
+        labels = watersheds_doubling(fd_eff)
+        cyclic = int((~pinned.reshape(-1)[labels.reshape(-1).long()]).sum())
     if cyclic:
         raise ValueError(f"flow directions hold a cycle: {cyclic} cells "
                          "never reach a terminal")
-    return (labels, rotations, done) if return_info else labels
+    return (labels, rotations, engine) if return_info else labels
 
 
 def upslope_cells(seed_mask, flowdirs, max_rotations=64, return_info=False,
                   device="cuda"):
     """Cells whose flow path passes through any seed cell, the seeds
-    included (reference ``d8_upslope_cells``); bool.  Raises if
-    ``max_rotations`` rotations do not reach the fixpoint.
-    ``return_info`` adds ``(rotations, converged)``.  Tensors run where
-    ``flowdirs`` lives; arrays move to ``device``."""
+    included (reference ``d8_upslope_cells``); bool.  When
+    ``max_rotations`` rotations of resolve sweeps do not reach the
+    fixpoint, pointer doubling finishes.  ``return_info`` adds
+    ``(rotations, engine)`` as :func:`watersheds_from_flowdirs` does.
+    Tensors run where ``flowdirs`` lives; arrays move to ``device``."""
     fd_eff = effective_codes(as_tensor(flowdirs, device))
     seeds = as_tensor(seed_mask, fd_eff.device).to(torch.bool)
-    out, rotations, done = successor_resolve(
-        fd_eff, seeds.to(torch.int32), seeds | (fd_eff == 0), max_rotations,
-        return_info=True)
-    return (out > 0, rotations, done) if return_info else out > 0
+    out, rotations, done = successor_resolve_info(
+        fd_eff, seeds.to(torch.int32), seeds | (fd_eff == 0), max_rotations)
+    engine = _finish("upslope cells", rotations, done, fd_eff.shape)
+    up = out > 0 if done else upslope_doubling(seeds, fd_eff)
+    return (up, rotations, engine) if return_info else up
 
 
-def strahler_order(flowdirs, max_rotations=64, return_info=False,
-                   device="cuda"):
+def strahler_order(flowdirs, max_rotations=None, return_info=False,
+                   device="cuda", max_iters=None):
     """Strahler stream order (int32): 1 on cells with no inflow, ``m``
     where one inflow attains the largest inflow order ``m``, ``m + 1``
     where two or more do; 0 on nodata.  Raises if ``max_rotations``
-    rotations do not reach the fixpoint.  ``return_info`` adds
-    ``(rotations, converged)``.  ``flowdirs``: a tensor (the work runs
-    where it lives) or an array (moved to ``device``)."""
-    return strahler_fixpoint(as_tensor(flowdirs, device), max_rotations,
-                             return_info)
+    rotations (64 by default) do not reach the fixpoint; ``max_iters`` is
+    the reference's name for that cap (give one of the two).
+    ``return_info`` adds ``(rotations, converged)``.  ``flowdirs``: a
+    tensor (the work runs where it lives) or an array (moved to
+    ``device``)."""
+    cap = _rotation_cap(max_rotations, max_iters, 64)
+    return strahler_fixpoint(as_tensor(flowdirs, device), cap, return_info)
 
 
 def _rounds(fd):

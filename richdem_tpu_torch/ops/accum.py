@@ -31,7 +31,7 @@ from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
 from richdem_tpu_torch.ops.dinf import (DINF_DEPTH, dinf_accumulation,
                                         dinf_two_tap)
-from richdem_tpu_torch.ops.fill import _require_converged
+from richdem_tpu_torch.ops.fill import _require_converged, _rotation_cap
 from richdem_tpu_torch.ops.mfd import MFD_DEPTH, mfd_accumulation
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor
 from richdem_tpu_torch.ops.successor import successor_table
@@ -158,18 +158,21 @@ def d8_accumulation(flowdirs, weights=None, no_data_mask=None,
 
 
 def flow_accumulation_from_props(props, weights=None, no_data_mask=None,
-                                 max_rotations=512, return_info=False,
-                                 depth=MFD_DEPTH, device="cuda"):
+                                 max_rotations=None, return_info=False,
+                                 depth=MFD_DEPTH, device="cuda",
+                                 max_iters=None):
     """Weighted upstream accumulation from ``(H, W, 8)`` proportions, by the
     multi-flow sweeps (:func:`~richdem_tpu_torch.ops.mfd.mfd_accumulation`)
     on every device.  Nodata cells must already have zero proportions
     (:func:`~richdem_tpu_torch.ops.flowdirs.flow_proportions` gives them
     that); the mask zeroes their weight and output.  ``return_info`` adds
-    ``(rotations, converged)``.  The reference's ``max_iters`` bounds its
-    CPU Jacobi fallback, which the port does not take; ``max_rotations``
-    bounds the sweeps, as on the TPU."""
-    return mfd_accumulation(props, weights, no_data_mask, max_rotations,
-                            return_info, depth, device)
+    ``(rotations, converged)``.  ``max_rotations`` (512 by default) bounds
+    the sweeps, as on the TPU; the reference's ``max_iters``, which bounds
+    its CPU Jacobi fallback, is taken as the same cap (give one of the
+    two)."""
+    cap = _rotation_cap(max_rotations, max_iters, 512)
+    return mfd_accumulation(props, weights, no_data_mask, cap, return_info,
+                            depth, device)
 
 
 def dinf_accumulation_from_angles(angles, weights=None, no_data_mask=None,

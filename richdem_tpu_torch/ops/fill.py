@@ -222,6 +222,17 @@ def _require_converged(done, what, cap):
                            "iterations; pass a larger cap")
 
 
+def _rotation_cap(max_rotations, max_iters, default):
+    """The cap of rotations, from the port's ``max_rotations`` or the
+    reference's ``max_iters`` (``default`` when neither is given);
+    ``TypeError`` when both are."""
+    if max_rotations is not None and max_iters is not None:
+        raise TypeError("give max_rotations or max_iters, not both")
+    if max_iters is not None:
+        return max_iters
+    return default if max_rotations is None else max_rotations
+
+
 def fill_depressions(dem, no_data=None, eps=0.0, max_iters=1024,
                      scale_diagonal=False, device="cuda", engine=None,
                      eps_diag=None):

@@ -225,13 +225,24 @@ def rho8_core(z, nodata_mask, cellsize=1.0, seed=0, topology="D8"):
     return out
 
 
-def rho8_flowdirs(dem, no_data=None, seed=0, topology="D8", cellsize=1.0,
-                  device="cuda"):
+def _no_key(key):
+    """The reference's ``key`` (a ``jax.random`` key) has its place in the
+    signature; the port draws from ``seed`` and cannot take one."""
+    if key is not None:
+        raise ValueError(
+            "key: the port draws Rho8's stream from seed (Philox4x32-10) and "
+            "cannot reproduce jax.random keys; pass key=None and a seed")
+
+
+def rho8_flowdirs(dem, no_data=None, key=None, seed=0, topology="D8",
+                  cellsize=1.0, device="cuda"):
     """Stochastic aspect-unbiased single flow directions (Fairfield &
     Leymarie 1991): the diagonal wins with the probability that its true
-    direction deserves.  ``seed`` keys the random stream (the reference's
-    ``key=`` is JAX's and has no counterpart).  ``dem``: a tensor (the
-    work runs where it lives) or an array (moved to ``device``)."""
+    direction deserves.  ``seed`` keys the random stream; ``key`` stands
+    where the reference takes a JAX key and must be ``None``
+    (``ValueError`` otherwise).  ``dem``: a tensor (the work runs where it
+    lives) or an array (moved to ``device``)."""
+    _no_key(key)
     dem = as_tensor(dem, device)
     return rho8_core(dem.to(torch.float32), nodata_like(dem, no_data),
                      cellsize, seed, topology)
@@ -408,10 +419,12 @@ def proportions_from_d8(flowdirs):
 
 
 def flow_proportions(dem, method="D8", no_data=None, exponent=None,
-                     cellsize=1.0, seed=0, device="cuda"):
+                     cellsize=1.0, key=None, seed=0, device="cuda"):
     """(H, W, 8) proportions of any metric, the counterpart of pyrichdem's
     ``FlowProportions``.  ``dem``: a tensor (the work runs where it lives)
-    or an array (moved to ``device``).  ``seed`` keys Rho8's stream."""
+    or an array (moved to ``device``).  ``seed`` keys Rho8's stream;
+    ``key`` must be ``None``, as in :func:`rho8_flowdirs`."""
+    _no_key(key)
     z = as_tensor(dem, device)
     m = method.lower()
     if m in ("d8", "ocallaghan", "d4"):
@@ -420,8 +433,9 @@ def flow_proportions(dem, method="D8", no_data=None, exponent=None,
                                                cellsize))
     if m in ("rho8", "rho4"):
         topology = "D4" if m == "rho4" else "D8"
-        return proportions_from_d8(rho8_flowdirs(z, no_data, seed, topology,
-                                                 cellsize))
+        return proportions_from_d8(rho8_flowdirs(z, no_data, seed=seed,
+                                                 topology=topology,
+                                                 cellsize=cellsize))
     if m in ("dinf", "tarboton"):
         return proportions_from_dinf(dinf_flowdirs(z, no_data, cellsize))
     mask = nodata_like(z, no_data)

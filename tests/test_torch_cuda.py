@@ -15,7 +15,10 @@ bitwise, down and transposed up, and so are their fixpoints.  The scan
 fill sweep is bitwise its plain version down and up at ε = 0, ε = 1e-3 and
 D4, at widths below 1024, not a multiple of 1024, and above 8192 (several
 chunks of 1024·8 columns), and its ε = 0 fixpoint equals the native
-engine's fill.
+engine's fill.  The row-ring fill and accumulation sweeps are bitwise
+their plain versions at widths that cut the last tile short, on rows that
+are and are not 16-byte aligned (the float4 and the scalar consumers),
+at heights 1, 2 and one past the ring.
 """
 
 import numpy as np
@@ -382,3 +385,119 @@ def test_fill_scan_matches_native(dev):
                                 engine="scan")
     want = native.fill(dem.astype(np.float64))
     assert np.array_equal(got.cpu().numpy().astype(np.float64), want)
+
+
+# -- the row-ring sweeps (csrc/row_ring.cuh) --------------------------------
+
+#: Widths that cut the last tile short, and give rows that are not 16-byte
+#: aligned.
+RING_WIDTHS = [1, 45, 127, 129, 1023, 1024, 1025, 2048, 2049, 3000]
+
+
+def _unaligned(x, offset):
+    """``x`` copied into a contiguous tensor that starts ``offset`` elements
+    into its storage (``x`` itself when 0)."""
+    if offset == 0:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _fill_case(shape, dev, seed):
+    z, mask = _dem(shape, dev, seed=seed)
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    floor = torch.where(mask, neg, z)
+    rng = np.random.default_rng(seed)
+    lifted = torch.from_numpy(rng.random(shape) < 0.5).to(dev)
+    w = torch.where(mask, neg, torch.where(
+        lifted, z + 3.0, torch.full_like(z, sweeps.BIG)))
+    return w, floor
+
+
+def _accum_case(shape, dev, seed):
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(-1, 9, shape).astype(np.int8))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32))
+    acc = torch.from_numpy(rng.uniform(0.0, 50.0, shape).astype(np.float32))
+    return acc.to(dev), w.to(dev), codes.to(dev)
+
+
+def _fill_pair(w, floor, eps, reverse):
+    fk = torch.zeros(1, dtype=torch.int32, device=w.device)
+    fp = torch.zeros(1, dtype=torch.int32, device=w.device)
+    got = fill.fill_sweep(w, floor, eps, eps, reverse, fk)
+    want = sweeps.fill_sweep_plain(w, floor, eps, eps, reverse, fp)
+    return got, want, fk, fp
+
+
+@pytest.mark.parametrize("width", RING_WIDTHS)
+@pytest.mark.parametrize("height", [1, 2, _build.SWEEP_STAGES + 1])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_row_ring_sweeps_match_plain(dev, width, height, offset):
+    """The fill and accumulation sweeps against their plain versions, down
+    and up, with the fill's change flag; heights 1, 2 and one row past the
+    ring.  Offset 0: inputs as allocated (16-byte aligned rows where the
+    width allows, the float4 path of full tiles); offset 1: inputs that
+    start 1, 2 and 3 elements into their storage (no row aligned)."""
+    shape = (height, width)
+    for kernel in (fill, accum):
+        for reverse in (False, True):
+            if kernel is fill:
+                w, floor = _fill_case(shape, dev, seed=width + height)
+                for eps in (0.0, 1e-3):
+                    got, want, fk, fp = _fill_pair(
+                        _unaligned(w, offset), _unaligned(floor, 2 * offset),
+                        eps, reverse)
+                    assert torch.equal(got, want) and torch.equal(fk, fp)
+                # unchanged input: the flag stays 0
+                fixed = torch.full_like(w, -sweeps.BIG)
+                _, _, fk, fp = _fill_pair(fixed, fixed, 0.0, reverse)
+                assert int(fk) == int(fp) == 0
+            else:
+                acc, w, codes = _accum_case(shape, dev, seed=width + height)
+                got = accum.accum_sweep(_unaligned(acc, offset),
+                                        _unaligned(w, 3 * offset),
+                                        _unaligned(codes, 5 * offset),
+                                        reverse)
+                assert torch.equal(
+                    got, accum.accum_sweep_plain(acc, w, codes, reverse))
+
+
+def test_row_ring_sweeps_seam_rule_perlin(dev):
+    """On a 2048×2100 Perlin DEM with nodata holes, a fill rotation (down,
+    up, transposed down and up) and an accumulation sweep down and a
+    transposed one up on its D8 codes equal the plain versions, which read
+    every 1024-column seam at sweep-start values."""
+    shape = (2048, 2100)
+    z = tsynth.perlin_dem(*shape, seed=11, device=dev)
+    holes = synth_np.with_nodata_holes(np.zeros(shape, np.float32),
+                                       no_data=-1.0, seed=11)
+    mask = torch.from_numpy(holes == -1.0).to(dev)
+    assert 0 < int(mask.sum()) < mask.numel()
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    floor = torch.where(mask, neg, z)
+    wk = wp = torch.where(mask, neg, torch.full_like(z, sweeps.BIG))
+    floor_t = floor.t().contiguous()
+    for transposed, reverse in ((False, False), (False, True),
+                                (True, False), (True, True)):
+        fl = floor_t if transposed else floor
+        if transposed and wk.shape != fl.shape:
+            wk, wp = wk.t().contiguous(), wp.t().contiguous()
+        fk = torch.zeros(1, dtype=torch.int32, device=dev)
+        fp = torch.zeros(1, dtype=torch.int32, device=dev)
+        wk = fill.fill_sweep(wk, fl, 0.0, 0.0, reverse, fk)
+        wp = sweeps.fill_sweep_plain(wp, fl, 0.0, 0.0, reverse, fp)
+        assert torch.equal(wk, wp) and torch.equal(fk, fp)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=1e-3)
+    assert done
+    fd = flowdirs.d8_core(filled, mask)
+    ones = torch.where(mask, 0.0, torch.ones_like(z))
+    ak = accum.accum_sweep(ones, ones, fd, False)
+    assert torch.equal(ak, accum.accum_sweep_plain(ones, ones, fd, False))
+    perm = torch.as_tensor(accum.PERM_TRANSPOSE, device=dev)
+    fd_t = perm[fd.clamp(min=0).long()].t().contiguous()
+    at, ones_t = ak.t().contiguous(), ones.t().contiguous()
+    assert torch.equal(accum.accum_sweep(at, ones_t, fd_t, True),
+                       accum.accum_sweep_plain(at, ones_t, fd_t, True))

@@ -72,9 +72,9 @@ def _seeds(fd, seed=0):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_watersheds_vs_jax_and_reference(case):
     fd = _codes(*case)
-    got, rotations, done = rt.watersheds_from_flowdirs(
+    got, rotations, engine = rt.watersheds_from_flowdirs(
         fd, return_info=True, device="cpu")
-    assert got.dtype == torch.int32 and done and rotations >= 1
+    assert got.dtype == torch.int32 and engine == "sweeps" and rotations >= 1
     want = np.asarray(jm.watersheds_from_flowdirs(jnp.asarray(fd)))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), terminal_labels(fd))
@@ -196,21 +196,80 @@ def test_plain_sweeps_cross_seams():
 
 
 def test_cycle_and_unconverged_raise():
+    """A cycle raises; a watershed or upslope call whose sweeps stop at the
+    cap is finished by pointer doubling (and equals it); Strahler order
+    still raises at its cap."""
     fd = np.zeros((6, 7), np.int8)
     fd[2, 2], fd[2, 3] = 5, 1   # E then W: a 2-cycle
     fd[3, 3] = 3                # drains into it
     with pytest.raises(ValueError, match="cycle: 3 cells"):
         rt.watersheds_from_flowdirs(fd, device="cpu")
+    with pytest.raises(ValueError, match="cycle: 3 cells"):
+        rt.watersheds_from_flowdirs(fd, max_rotations=0, device="cpu")
     deep = _codes((64, 80), 8, False)
     _, rotations, _ = rt.watersheds_from_flowdirs(deep, return_info=True,
                                                   device="cpu")
     assert rotations > 2
-    with pytest.raises(RuntimeError, match="did not converge"):
-        rt.watersheds_from_flowdirs(deep, max_rotations=1, device="cpu")
-    with pytest.raises(RuntimeError, match="did not converge"):
-        rt.upslope_cells(_seeds(deep), deep, max_rotations=1, device="cpu")
+    labels, rotations, engine = rt.watersheds_from_flowdirs(
+        deep, max_rotations=1, return_info=True, device="cpu")
+    assert (rotations, engine) == (1, "doubling")
+    np.testing.assert_array_equal(
+        labels.numpy(), tm.watersheds_doubling(deep, "cpu").numpy())
+    up, rotations, engine = rt.upslope_cells(
+        _seeds(deep), deep, max_rotations=1, return_info=True, device="cpu")
+    assert (rotations, engine) == (1, "doubling")
+    np.testing.assert_array_equal(
+        up.numpy(), tm.upslope_doubling(_seeds(deep), deep, "cpu").numpy())
     with pytest.raises(RuntimeError, match="did not converge"):
         rt.strahler_order(deep, max_rotations=1, device="cpu")
+
+
+def _serpentine(n):
+    """Each even row flows E and each odd row W, then S at the row's end;
+    the last cell of the path is the one terminal.  The path turns back
+    across every row, so the resolve sweeps gain about two rows a
+    rotation."""
+    fd = np.empty((n, n), np.int8)
+    fd[0::2], fd[1::2] = 5, 1
+    fd[0::2, -1], fd[1::2, 0] = 7, 7
+    fd[-1, -1 if n % 2 else 0] = 0
+    return fd
+
+
+@pytest.mark.parametrize("n", [128, 192])
+def test_serpentine_watersheds_finish_by_doubling(n, caplog):
+    """Past the 64-rotation cap, doubling finishes the labels: bitwise the
+    reference's (its doubling on the CPU), through the port's function and
+    ``api.WatershedLabels``, with the engine reported and logged."""
+    fd = _serpentine(n)
+    want = np.asarray(jm.watersheds_from_flowdirs(jnp.asarray(fd)))
+    assert np.unique(want).size == 1
+    with caplog.at_level("INFO", logger="richdem_tpu"):
+        got, rotations, engine = rt.watersheds_from_flowdirs(
+            fd, return_info=True, device="cpu")
+    assert (rotations, engine) == (64, "doubling")
+    assert "pointer doubling finished" in caplog.text
+    np.testing.assert_array_equal(got.numpy(), want)
+    api = rt.WatershedLabels(rt.rdarray(torch.from_numpy(fd)),
+                             from_flowdirs=True)
+    np.testing.assert_array_equal(api.np(), want)
+
+
+@pytest.mark.parametrize("n", [128, 192])
+def test_serpentine_upslope_finishes_by_doubling(n):
+    """The cells upslope of a seed in the last row: bitwise the reference's
+    through the port's function and ``api.UpslopeCells``."""
+    fd = _serpentine(n)
+    seeds = np.zeros(fd.shape, bool)
+    seeds[-1, n // 2] = True
+    want = np.asarray(jm.upslope_cells(jnp.asarray(seeds), jnp.asarray(fd)))
+    assert 0 < want.sum() < want.size
+    got, rotations, engine = rt.upslope_cells(seeds, fd, return_info=True,
+                                              device="cpu")
+    assert (rotations, engine) == (64, "doubling")
+    np.testing.assert_array_equal(got.numpy(), want)
+    api = rt.UpslopeCells(seeds, rt.rdarray(torch.from_numpy(fd)))
+    np.testing.assert_array_equal(api.np(), want)
 
 
 def test_d8_methods_slice_vs_jax():

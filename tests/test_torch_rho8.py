@@ -25,6 +25,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from richdem_tpu import methods as jm
 from richdem_tpu import synth
 from richdem_tpu.ops import accum as jaccum
 from richdem_tpu.ops import flowdirs as jflow
@@ -152,6 +153,38 @@ def test_topology_keyword_matches_jax():
     np.testing.assert_array_equal(want4, want)
     with pytest.raises(ValueError, match="topology"):
         rt.rho8_flowdirs(dem, topology="D6", device="cpu")
+    # the reference's key and max_iters, by name and in their places
+    t = torch.from_numpy(dem)
+    codes = rt.rho8_flowdirs(t, ND, None, 1)
+    assert torch.equal(codes, rt.rho8_flowdirs(t, no_data=ND, seed=1))
+    assert torch.equal(rt.rho8_flowdirs(t, ND, key=None, seed=1), codes)
+    assert torch.equal(rt.rho8_flowdirs(t, None, None, 0),
+                       rt.rho8_flowdirs(t, seed=0))
+    with pytest.raises(ValueError, match="cannot reproduce jax.random"):
+        rt.rho8_flowdirs(t, ND, key=object())
+    props = rt.flow_proportions(t, "Rho8", ND, None, 1.0, None, 1)
+    assert torch.equal(props, tflow.proportions_from_d8(codes))
+    with pytest.raises(ValueError, match="cannot reproduce jax.random"):
+        rt.flow_proportions(t, "Rho8", ND, key=object())
+    fd = tflow.d8_flowdirs(t, no_data=ND)
+    order = rt.strahler_order(fd, max_iters=64)
+    np.testing.assert_array_equal(
+        order.numpy(), np.asarray(jm.strahler_order(jnp.asarray(fd.numpy()),
+                                                    max_iters=4096)))
+    with pytest.raises(RuntimeError, match="did not converge within 1 "):
+        rt.strahler_order(fd, max_iters=1)
+    with pytest.raises(TypeError, match="not both"):
+        rt.strahler_order(fd, max_rotations=8, max_iters=8)
+    quinn = rt.flow_proportions(t, "Quinn", ND)
+    acc, rot, done = tacc.flow_accumulation_from_props(
+        quinn, max_iters=512, return_info=True)
+    assert done and torch.equal(
+        acc, tacc.flow_accumulation_from_props(quinn, max_rotations=512))
+    with pytest.raises(RuntimeError, match="did not converge within 1 "):
+        tacc.flow_accumulation_from_props(quinn, max_iters=1)
+    with pytest.raises(TypeError, match="not both"):
+        tacc.flow_accumulation_from_props(quinn, max_rotations=8,
+                                          max_iters=8)
 
 
 @pytest.mark.parametrize("method,topology", [("Rho8", "D8"), ("rho4", "D4")])

@@ -7,8 +7,8 @@ Run from the repository root on a machine with a card and ``nvcc``:
     python3 tools/torch_profile.py OUT_DIR [PATH ...]
 
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
-``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths`` and
-``scan_widths`` (all when none is named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
+``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths``,
+``scan_widths`` and ``sweep_rows`` (all when none is named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
 step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
@@ -37,7 +37,13 @@ trace either: it times one scan fill sweep (``csrc/fill_scan.cu``, ε =
 1e-3, from the fill's start) on 2048-row Perlin rasters of several widths
 with CUDA events (one warm-up call, then the mean of three) and prints one
 JSON line per width with the microseconds per row step and the number of
-8192-column chunks a row takes.
+8192-column chunks a row takes.  ``sweep_rows`` runs no trace either: it
+prints ``ptxas``'s registers and spill bytes of the fill and accumulation
+sweep kernels' entries, then times one fill sweep (ε = 0, from the fill's
+start) and one accumulation sweep (unit weights, D8 codes of the DEM) on
+10240-row Perlin rasters of widths 1024, 4096 and 10240 with CUDA events
+(one warm-up call, then the mean of three), and prints one JSON line per
+kernel and width with the microseconds per row step.
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
@@ -74,11 +80,13 @@ PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
                 "Resolve": "resolve_sweep", "Strahler": "strahler_sweep",
                 "fill_scan_kernel": "fill_scan"}
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
-         "rho8", "api", "depths", "scan_widths")
+         "rho8", "api", "depths", "scan_widths", "sweep_rows")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
 SCAN_ROWS = 2048
 SCAN_WIDTHS = (1024, 4096, 8192, 8193, 10240, 16384)
+SWEEP_ROWS = 10240
+SWEEP_WIDTHS = (1024, 4096, 10240)
 
 
 def _group(name):
@@ -167,6 +175,22 @@ def depth_sweep(dev, card):
                               "card": card}), flush=True)
 
 
+def _events_ms(fn, reps=3):
+    """Milliseconds per call of ``fn`` (CUDA events; one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def scan_widths(dev, card):
     """Microseconds per row step of one scan fill sweep at each width."""
     import torch
@@ -177,21 +201,43 @@ def scan_widths(dev, card):
         z = tsynth.perlin_dem(SCAN_ROWS, width, seed=0, device=dev)
         w0 = torch.full_like(z, sweeps.BIG)
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False, flag)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
-            fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False, flag)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / 3
+        ms = _events_ms(
+            lambda: fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False, flag))
         k = min(-(-width // 1024), 8)
         print(json.dumps({"scan_widths": width, "rows": SCAN_ROWS,
                           "chunks": -(-width // (1024 * k)), "ms": ms,
                           "us_per_row": 1e3 * ms / SCAN_ROWS,
                           "card": card}), flush=True)
+
+
+def sweep_rows(dev, card):
+    """Registers, spills and microseconds per row step of the fill and
+    accumulation sweeps."""
+    import torch
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps
+
+    for name, kern in (("fill_sweep", fill.FILL_SWEEP),
+                       ("accum_sweep", accum.ACCUM_SWEEP)):
+        kern.function()
+        print(json.dumps({"ptxas": name, "entries": kern.resources(),
+                          "card": card}), flush=True)
+    for width in SWEEP_WIDTHS:
+        z = tsynth.perlin_dem(SWEEP_ROWS, width, seed=0, device=dev)
+        w0 = torch.full_like(z, sweeps.BIG)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        fd = flowdirs.d8_core(z, torch.zeros_like(z, dtype=torch.bool))
+        ones = torch.ones_like(z)
+        for name, call in (
+                ("fill_sweep",
+                 lambda: fill.fill_sweep(w0, z, 0.0, 0.0, False, flag)),
+                ("accum_sweep",
+                 lambda: accum.accum_sweep(ones, ones, fd, False))):
+            ms = _events_ms(call)
+            print(json.dumps({"sweep_rows": name, "rows": SWEEP_ROWS,
+                              "width": width, "ms": ms,
+                              "us_per_row": 1e3 * ms / SWEEP_ROWS,
+                              "card": card}), flush=True)
 
 
 def main():
@@ -259,6 +305,9 @@ def main():
             continue
         if name == "scan_widths":
             scan_widths(dev, card)
+            continue
+        if name == "sweep_rows":
+            sweep_rows(dev, card)
             continue
         res = trace(name, fns[name], out_dir)
         res["card"] = card
