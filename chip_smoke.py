@@ -16,7 +16,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card, on a ragged 1000×1100 Perlin DEM with nodata holes (the distance
    sweep in every mode, the terrain kernel for all 8 attributes, the D∞ and
-   multi-flow sweeps at depths 1, 8 and 0, down and transposed up, Rho8
+   multi-flow sweeps at depths 1, 8 and 0, down and transposed up (at 1
+   and 8 against the plain sweep over whole rows: the kernels' tile seams
+   are exact), Rho8
    and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
    transposed up and their fixpoints); Rho8's diagonal share on 256²
    planes at θ = 10° and 30° within 0.015 of θ/45; the scan fill sweep
@@ -50,7 +52,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    ``quinn_mfd``) at 10240²: ε = 1e-2 fill → D∞ angles → D∞ accumulation →
    slope → TWI, and ε = 1e-2 fill → Quinn proportions → multi-flow
    accumulation; each converged, mass-conserving, its kernels launched;
-   three timed steps, the peak memory, the rotations and the depth;
+   three timed steps, the peak memory, the accumulation's rotations and
+   the depth;
 10. d8_methods at 10240²: config 2's step, then watershed labels,
    Strahler order, D8 accumulation, and the upslope cells of the 64
    interior cells of largest accumulation; labels and upslope mask bitwise
@@ -187,11 +190,18 @@ PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "dinf_sweep": "dinf_twi", "mfd_sweep": "quinn_mfd",
            "rho8": "rho8", "resolve_sweep": "d8_methods",
            "strahler_sweep": "d8_methods", "fill_scan": "api"}
-#: Kernels redesigned since their port: the row-ring fill and accumulation
-#: sweeps (``csrc/row_ring.cuh``).
-REDESIGNED = ("fill_sweep", "accum_sweep")
+#: Kernels redesigned since their port, and in which PR: the row-ring fill
+#: and accumulation sweeps (``csrc/row_ring.cuh``), the shared-memory D8
+#: tile, and the flow sweeps whose tiles trade edge values
+#: (``csrc/flow_sweep.cuh``).
+REDESIGNED = {"fill_sweep": 6, "accum_sweep": 6, "d8": 7, "mfd_sweep": 7,
+              "dinf_sweep": 7}
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
+#: Depths at which those sweeps are held against the plain sweep over whole
+#: rows, a tile as wide as WHOLE_ROW
+WHOLE_ROW_DEPTHS = (1, 8)
+WHOLE_ROW = 1 << 30
 
 
 
@@ -430,15 +440,22 @@ def flow_sweeps(name):
 
 def flow_sweep_pair(name, acc, w, field, field_t, depth, err, what):
     """A down sweep, then a transposed up sweep of its result, of the D∞ or
-    multi-flow kernel and of its plain version, held bitwise."""
+    multi-flow kernel and of its plain version, held bitwise.  At depths 1
+    and 8 the plain version sweeps whole rows (one tile a row): the
+    kernel's tiles trade edge values, so their seams change nothing; at
+    other depths it takes the kernel's tiles."""
+    from richdem_tpu_torch._build import FLOW_TILE
+
     kern, plain = flow_sweeps(name)
+    tile = WHOLE_ROW if depth in WHOLE_ROW_DEPTHS else FLOW_TILE
+    rule = "whole rows" if tile == WHOLE_ROW else f"{tile}-column tiles"
     ak = kern(acc, w, field, False, depth)
-    bitwise(name, ((ak, plain(acc, w, field, False, depth)),), err,
-            f"{what}, depth {depth}, down")
+    bitwise(name, ((ak, plain(acc, w, field, False, depth, tile=tile)),),
+            err, f"{what}, depth {depth}, down, plain over {rule}")
     at, w_t = ak.t().contiguous(), w.t().contiguous()
     bitwise(name, ((kern(at, w_t, field_t, True, depth),
-                    plain(at, w_t, field_t, True, depth)),), err,
-            f"{what}, depth {depth}, transposed up")
+                    plain(at, w_t, field_t, True, depth, tile=tile)),), err,
+            f"{what}, depth {depth}, transposed up, plain over {rule}")
 
 
 def absorbed_mass(acc, props):
@@ -728,7 +745,8 @@ def phase_kernel_vs_plain(dev, err):
             flow_sweep_pair(name, acc0, ones, *fields[name], depth, err,
                             shape)
     log("kernel-vs-plain", f"D∞ and multi-flow (Quinn) sweeps at depths "
-        f"{FLOW_DEPTHS}, down and transposed up: bitwise")
+        f"{FLOW_DEPTHS}, down and transposed up: bitwise (at depths "
+        f"{WHOLE_ROW_DEPTHS} to the plain sweep over whole rows)")
 
     terrain_attributes(z, mask, 2.0, 3.0, err,
                        f"{shape}, zscale 2, cellsize 3")
@@ -1827,7 +1845,8 @@ def main():
          "bound_ms": times[k.name]["bound_ms"],
          "bound_by": times[k.name]["bound_by"],
          "library_ms": None, **RESOURCES[k.name],
-         **({"redesigned_in": 6} if k.name in REDESIGNED else {})}
+         **({"redesigned_in": REDESIGNED[k.name]}
+            if k.name in REDESIGNED else {})}
         for k in kernels]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["Kernel", "SWEEP_TILE", "SWEEP_STAGES", "NVCC_FLAGS",
+__all__ = ["Kernel", "SWEEP_TILE", "SWEEP_STAGES", "FLOW_TILE",
+           "FLOW_HALO", "NVCC_FLAGS",
            "find_nvcc", "ptxas_resources", "stream_handle"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -37,12 +38,27 @@ SWEEP_TILE = 1024
 #: rows are staged.
 SWEEP_STAGES = 16
 
+#: Columns of one tile of the D∞ and multi-flow sweeps
+#: (``csrc/flow_sweep.cuh``).  Their seams are exact for in-row windows of
+#: up to :data:`FLOW_HALO` columns, so the tile width changes only the
+#: speed there; at depth 0 the window is the tile, in the plain versions
+#: too.  Chosen on an H100 (PERF.md: ``tools/torch_profile.py
+#: flow_tiles``).
+FLOW_TILE = 128
+
+#: Columns past each edge of a flow-sweep tile that its block stages and
+#: takes new values of from its neighbours: in-row windows up to this wide
+#: cross tile edges, and a block trades edges every ``FLOW_HALO / window``
+#: rows.
+FLOW_HALO = 64
+
 #: Exact IEEE float32: no FMA contraction (plain fill and D8 codes are held
 #: bitwise), no fast math.  ``-Xptxas -v`` only reports resources.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DRD_TILE={SWEEP_TILE}",
-              f"-DRD_STAGES={SWEEP_STAGES}"]
+              f"-DRD_STAGES={SWEEP_STAGES}", f"-DRD_FLOW_TILE={FLOW_TILE}",
+              f"-DRD_FLOW_HALO={FLOW_HALO}"]
 
 #: Where a CUDA toolkit lives when ``CUDA_HOME`` is unset and ``nvcc`` is
 #: not on ``PATH``.
@@ -70,17 +86,23 @@ class Kernel:
     """One CUDA source, its shared library and its launch counter.
 
     ``argtypes`` lists the ctypes argument types of the C entry point
-    ``symbol``, which returns a ``cudaError_t`` as ``int``.  The wrapper
+    ``symbol``, which returns a ``cudaError_t`` as ``int``.  ``defines``
+    (macro → value) replace the build's own ``-D`` values of those macros
+    and name a library of their own: a variant built for measurement
+    (``tools/torch_profile.py flow_tiles``).  The wrapper
     that launches the kernel calls :meth:`launch`, which adds one to
     ``launches``; nothing else touches the count."""
 
-    def __init__(self, name: str, symbol: str, argtypes):
+    def __init__(self, name: str, symbol: str, argtypes, defines=None):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.defines = dict(defines or {})
         self.source = os.path.join(CSRC, f"{name}.cu")
-        self.library = os.path.join(BUILD, f"lib{name}.so")
-        self.report = os.path.join(BUILD, f"lib{name}.ptxas.txt")
+        stem = name + "".join(f"_{k}{v}" for k, v in
+                              sorted(self.defines.items()))
+        self.library = os.path.join(BUILD, f"lib{stem}.so")
+        self.report = os.path.join(BUILD, f"lib{stem}.ptxas.txt")
         self.launches = 0
         self.build_seconds = None
         self._fn = None
@@ -104,7 +126,10 @@ class Kernel:
         nvcc = find_nvcc()
         os.makedirs(BUILD, exist_ok=True)
         tmp = f"{self.library}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, self.source]
+        flags = [f for f in NVCC_FLAGS if not (
+            f.startswith("-D") and f[2:].split("=")[0] in self.defines)]
+        flags += [f"-D{k}={v}" for k, v in self.defines.items()]
+        cmd = [nvcc, *flags, "-o", tmp, self.source]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -11,63 +11,41 @@
 // and are not carried over.
 //
 // What bounds it on an H100: the row-to-row dependency (flow_sweep.cuh).
-// Per cell a sweep reads acc, w and v and writes acc, 16 bytes.  The field
-// is decoded once per row as it is staged (floor, cast, one subtract), into
-// an int8 code and a float p in shared memory; a tap is then two compares
-// and a select: p toward code, 1 - p toward next(code), 0 elsewhere (code
-// 0 matches no direction).
+// Per cell a sweep reads acc, w and v and writes acc, 16 bytes.  An item
+// stages v of rows r - 1, r + 1 and r (the second and third reads of a row
+// hit L2); a tap decodes its staged v (floor, cast, one subtract): p toward
+// code, 1 - p toward next(code), 0 elsewhere (code 0 matches no direction).
 
 #include "flow_sweep.cuh"
 
 namespace {
 
+using rd::flow::View;
+
 struct DinfField {
   struct Ptrs {
     const float* v;
   };
-  struct Val {
-    float v;
-  };
-  using Own = Val;
-  using Halo = Val;
-  struct Shared {
-    float p[4][rd::W2];
-    int8_t code[4][rd::W2];
-  };
+  // acc, w, acc of the row after; then v of rows r - 1, r + 1 and r
+  static constexpr int NSLOT = 3 + 3;
 
-  const float* __restrict__ v;
-  Shared* sh;
-
-  __device__ DinfField(Ptrs ptrs, Shared* s) : v(ptrs.v), sh(s) {}
-
-  static __device__ void clear(Val& x) { x.v = 0.0f; }
-  __device__ void load(size_t i, Val& x) const { x.v = v[i]; }
   template <int REV>
-  __device__ void load_halo(size_t i, int, Val& x) const {
-    x.v = v[i];
+  static __device__ const float* source(const Ptrs& p, int q, int& dr) {
+    dr = q == 3 ? -1 : (q == 4 ? 1 : 0);
+    return p.v;
   }
-  __device__ void put(int slot, int i, float x) const {
-    const float fl = floorf(x);
-    sh->code[slot][i] = static_cast<int8_t>(static_cast<int>(fl));
-    sh->p[slot][i] = (x - fl) * 2.0f;
-  }
-  __device__ void stage(int slot, int i, const Val& x) const {
-    put(slot, i, x.v);
-  }
-  template <int REV>
-  __device__ void stage_halo(int slot, int i, int, const Val& x) const {
-    put(slot, i, x.v);
-  }
-  __device__ void zero(int slot, int i) const {
-    sh->code[slot][i] = 0;
-    sh->p[slot][i] = 0.0f;
-  }
-  // weight of staged cell i toward direction DIR
-  template <int DIR>
-  __device__ float tap(int slot, int i) const {
+  // weight toward the role's direction of staged column c (on the grid
+  // if `in`)
+  template <int REV, int ROLE>
+  static __device__ float tap(const View<NSLOT>& v, int c, bool in) {
+    constexpr int DR = rd::flow::row_of(ROLE);
+    constexpr int DIR = rd::flow::Dirs<REV>::of(ROLE);
     constexpr int PREV = DIR == 1 ? 8 : DIR - 1;  // next(PREV) == DIR
-    const int cd = sh->code[slot][i];
-    const float p = sh->p[slot][i];
+    const float x = v.at(DR < 0 ? 3 : (DR > 0 ? 4 : 5), c,
+                         in && v.row_ok(DR));
+    const float fl = floorf(x);
+    const int cd = static_cast<int>(fl);
+    const float p = (x - fl) * 2.0f;
     return cd == DIR ? p : (cd == PREV ? 1.0f - p : 0.0f);
   }
 };
@@ -76,7 +54,9 @@ struct DinfField {
 
 extern "C" int rd_dinf_sweep(const float* acc_in, const float* wgt,
                              const float* v, float* acc_out, int h, int w,
-                             int reverse, int lim, void* stream) {
-  return rd::launch_flow_sweep<DinfField, 4>(
-      acc_in, wgt, DinfField::Ptrs{v}, acc_out, h, w, reverse, lim, stream);
+                             int reverse, int lim, int* flags,
+                             int flags_len, void* stream) {
+  return rd::launch_flow_sweep<DinfField>(acc_in, wgt, DinfField::Ptrs{v},
+                                          acc_out, h, w, reverse, lim,
+                                          flags, flags_len, stream);
 }

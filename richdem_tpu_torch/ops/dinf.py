@@ -23,10 +23,11 @@ import ctypes
 
 import torch
 
-from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
+from richdem_tpu_torch._build import FLOW_TILE, Kernel, stream_handle
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.flowdirs import OCTANT_DIRS, octants_per_radian
-from richdem_tpu_torch.ops.mfd import mfd_sweep_plain, scan_window
+from richdem_tpu_torch.ops.mfd import (mfd_sweep_plain, scan_window,
+                                       sweep_flags)
 from richdem_tpu_torch.ops.stencil import as_tensor
 from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
                                           accumulation_rotations)
@@ -40,7 +41,7 @@ __all__ = ["DINF_SWEEP", "DINF_DEPTH", "P_GRID", "dinf_two_tap",
 _P = ctypes.c_void_p
 DINF_SWEEP = Kernel("dinf_sweep", "rd_dinf_sweep",
                     [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, _P])
+                     ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P])
 
 #: The in-row scan depth of D∞ accumulation, chosen on an H100 (PERF.md:
 #: rotations and time per step at depth 1, 8, 32 and 0).
@@ -124,7 +125,7 @@ def dinf_planes(v):
         for d in range(1, 9)])
 
 
-def dinf_sweep_plain(acc_in, w, v, reverse, depth, tile=SWEEP_TILE):
+def dinf_sweep_plain(acc_in, w, v, reverse, depth, tile=FLOW_TILE):
     """Plain version of the D∞ sweep kernel: the multi-flow plain sweep
     over the field's decoded taps, bitwise the kernel's."""
     return mfd_sweep_plain(acc_in, w, dinf_planes(v), reverse, depth, tile)
@@ -147,9 +148,11 @@ def dinf_sweep(acc_in, w, v, reverse, depth):
     out = torch.empty_like(acc_in)
     if h == 0 or wd == 0:
         return out
+    flags = sweep_flags(wd, acc_in.device)
     DINF_SWEEP.launch(acc_in.data_ptr(), w.data_ptr(), v.data_ptr(),
                       out.data_ptr(), h, wd, int(bool(reverse)),
-                      scan_window(depth), stream_handle(acc_in.device))
+                      scan_window(depth), flags.data_ptr(), flags.numel(),
+                      stream_handle(acc_in.device))
     return out
 
 

@@ -13,15 +13,22 @@ row by the in-row window of ``depth`` columns (:func:`scan_window`):
 * ``depth`` d ≥ 2 — the in-row E and W chains solved by affine prefix scans
   over the next power of two ≥ d columns, closed with sweep-start values
   (``_mfd_scan_kernel``);
-* ``depth`` 0 — the scans over the whole column tile.
+* ``depth`` 0 — the scans over the whole column tile, closed at its
+  edges with sweep-start values.
 
-Every depth reaches the same fixpoint; depth trades scan steps per sweep
-against rotations.  A rotation is down, up, transposed down, transposed up
-(the reference's ``rrcc`` order), the transposed sweeps reading the plane
-stack transposed and permuted (:func:`transpose_planes`).  A CUDA tensor
-goes through ``csrc/mfd_sweep.cu``; a CPU tensor through
-:func:`mfd_sweep_plain`.  Convergence is equality over a whole rotation, and
-a non-converged result raises.
+The kernel's column tiles (:data:`~richdem_tpu_torch._build.FLOW_TILE`)
+trade their edge values: across a tile edge the row before is read at its
+new values, and a window of up to
+:data:`~richdem_tpu_torch._build.FLOW_HALO` columns runs on across it, so
+at those depths a sweep is the sweep over whole rows, and the rotations
+are those of one tile a row.  Every depth reaches the same fixpoint; depth
+trades scan steps per sweep against rotations.  A rotation is down, up,
+transposed down, transposed up (the reference's ``rrcc`` order), the
+transposed sweeps reading the plane stack transposed and permuted
+(:func:`transpose_planes`).  A CUDA tensor goes through
+``csrc/mfd_sweep.cu``; a CPU tensor through :func:`mfd_sweep_plain`.
+Convergence is equality over a whole rotation, and a non-converged result
+raises.
 """
 
 from __future__ import annotations
@@ -31,68 +38,77 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
+from richdem_tpu_torch._build import (FLOW_HALO, FLOW_TILE, Kernel,
+                                      stream_handle)
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.stencil import as_tensor
 from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
                                           accumulation_rotations,
-                                          accumulation_trios, pad_row,
-                                          seam_columns)
+                                          accumulation_trios, pad_row)
 
 __all__ = ["MFD_SWEEP", "MFD_DEPTH", "scan_window", "mfd_sweep",
+           "sweep_flags",
            "mfd_sweep_plain", "transpose_planes", "mfd_accumulation_info",
            "mfd_accumulation"]
 
 _P = ctypes.c_void_p
 MFD_SWEEP = Kernel("mfd_sweep", "rd_mfd_sweep",
                    [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, _P])
+                    ctypes.c_int, _P, ctypes.c_int, _P])
 
 #: The in-row scan depth of multi-flow accumulation, chosen on an H100
 #: (PERF.md: rotations and time per step at depth 1, 8, 32 and 0).
 MFD_DEPTH = 8
 
 
-def scan_window(depth: int, tile: int = SWEEP_TILE) -> int:
+def scan_window(depth: int, tile: int = FLOW_TILE) -> int:
     """Columns of the in-row window at ``depth``: 1 at depth 1 (the GS
-    sweep), the next power of two ≥ ``depth`` (at most ``tile``) above,
-    ``tile`` at depth 0 (the whole tile).  The reference's ``_win_lim``
-    with the row ending at the tile edge."""
+    sweep), the next power of two ≥ ``depth`` above, ``tile`` at depth 0
+    (the whole tile).  A window wider than :data:`FLOW_HALO` stops at the
+    tile edge, so it is capped at ``tile``; one up to :data:`FLOW_HALO`
+    wide runs across tile edges and is not.  The reference's
+    ``_win_lim``."""
     if depth < 0:
         raise ValueError(f"depth must be >= 0, not {depth}")
     if depth == 0:
         return tile
-    return min(1 << (depth - 1).bit_length(), tile)
+    lim = 1 << (depth - 1).bit_length()
+    return lim if lim <= FLOW_HALO else min(lim, tile)
 
 
-def mfd_sweep_plain(acc_in, w, planes, reverse, depth, tile=SWEEP_TILE):
+def mfd_sweep_plain(acc_in, w, planes, reverse, depth, tile=FLOW_TILE):
     """Plain version of the sweep kernels (``csrc/flow_sweep.cuh``): a loop
     over rows in sweep order, vectorised across columns, with the kernel's
     grouping of every sum and its Hillis–Steele doubling order.
 
     ``planes``: (8, H, W) float32 taps, plane d - 1 toward direction d.
-    ``tile``: width of the kernel's column tiles.  Across a tile edge the
-    row before is read at its sweep-start values and the in-row windows
-    close with the neighbour column's sweep-start value, as the kernel
-    does, so one sweep is bitwise the kernel's."""
+    ``tile``: width of the kernel's column tiles.  The row before is read
+    at its new values across tile edges, and an in-row window of up to
+    :data:`FLOW_HALO` columns runs on across them, as the kernel's tiles
+    trade edge values; so at those depths one sweep is the sweep over
+    whole rows, whatever ``tile``.  A wider window (depth 0, the whole
+    tile) stops at the tile edge and is closed there with the neighbour
+    column's sweep-start value, as in the kernel."""
     h, wd = acc_in.shape
     dev = acc_in.device
     lim = scan_window(depth, tile)
+    # the window's bounds: the tile's at depth 0 or past FLOW_HALO, else
+    # the row's
+    span = tile if depth == 0 or lim > FLOW_HALO else max(wd, 1)
     (ns, nw, ne), (os_, ow, oe) = accumulation_trios(reverse)
     out = torch.empty_like(acc_in)
     zero = torch.zeros((), dtype=acc_in.dtype, device=dev)
     one = torch.ones((), dtype=acc_in.dtype, device=dev)
-    lseam, rseam = seam_columns(wd, tile, dev)
     col = torch.arange(wd, device=dev)
-    first = col - col % tile                          # tile's first column
-    last = torch.clamp(first + tile, max=wd) - 1      # and its last
-    left, right = col - first, last - col             # room in the tile
+    first = col - col % span                          # window bounds
+    last = torch.clamp(first + span, max=wd) - 1
+    left, right = col - first, last - col             # room within them
     # padded-row positions of the values that close the windows
     close_e = torch.maximum(first - 1, col - lim) + 1
     close_w = torch.minimum(last + 1, col + lim) + 1
 
     def shift(x, d, fill, east):
-        """x[j - d] (E chain) or x[j + d] (W chain) inside j's tile."""
+        """x[j - d] (E chain) or x[j + d] (W chain) inside j's bounds."""
         if east:
             return torch.where(left >= d, F.pad(x[:-d], (d, 0)), fill)
         return torch.where(right >= d, F.pad(x[d:], (0, d)), fill)
@@ -101,21 +117,15 @@ def mfd_sweep_plain(acc_in, w, planes, reverse, depth, tile=SWEEP_TILE):
     step = -1 if reverse else 1
     off_grid = torch.zeros(8, wd + 2, dtype=acc_in.dtype, device=dev)
     pa, pt = torch.zeros(wd + 2, dtype=acc_in.dtype, device=dev), off_grid
-    for k, r in enumerate(rows):
+    for r in rows:
         la, lt = pad_row(acc_in[r]), pad_row(planes[:, r])
         rn = r + step
         if 0 <= rn < h:
             na, nt = pad_row(acc_in[rn]), pad_row(planes[:, rn])
         else:
             na, nt = torch.zeros_like(la), off_grid
-        west, east = pa[:-2], pa[2:]
-        if k > 0 and lseam.numel():
-            old = pad_row(acc_in[rows[k - 1]])
-            west, east = west.clone(), east.clone()
-            west[lseam] = old[lseam]       # old[c - 1] in padded coords
-            east[rseam] = old[rseam + 2]   # old[c + 1]
-        newc = (pa[1:-1] * pt[ns - 1, 1:-1] + west * pt[nw - 1, :-2])
-        newc = newc + east * pt[ne - 1, 2:]
+        newc = (pa[1:-1] * pt[ns - 1, 1:-1] + pa[:-2] * pt[nw - 1, :-2])
+        newc = newc + pa[2:] * pt[ne - 1, 2:]
         oldb = (na[1:-1] * nt[os_ - 1, 1:-1] + na[:-2] * nt[ow - 1, :-2])
         oldb = oldb + na[2:] * nt[oe - 1, 2:]
         base = (w[r] + newc) + oldb
@@ -131,7 +141,8 @@ def mfd_sweep_plain(acc_in, w, planes, reverse, depth, tile=SWEEP_TILE):
                 wb, wa = (wa * shift(wb, d, zero, False) + wb,
                           wa * shift(wa, d, one, False))
                 d *= 2
-            new = ((eb + ea * la[close_e]) + (wb + wa * la[close_w])) - base
+            new_e, new_w = eb + ea * la[close_e], wb + wa * la[close_w]
+            new = ((new_e - base) + (new_w - base)) + base
         out[r] = new
         pa, pt = pad_row(new), lt
     return out
@@ -153,10 +164,21 @@ def mfd_sweep(acc_in, w, planes, reverse, depth):
     out = torch.empty_like(acc_in)
     if h == 0 or wd == 0:
         return out
+    flags = sweep_flags(wd, acc_in.device)
     MFD_SWEEP.launch(acc_in.data_ptr(), w.data_ptr(), planes.data_ptr(),
                      out.data_ptr(), h, wd, int(bool(reverse)),
-                     scan_window(depth), stream_handle(acc_in.device))
+                     scan_window(depth), flags.data_ptr(), flags.numel(),
+                     stream_handle(acc_in.device))
     return out
+
+
+def sweep_flags(width, device):
+    """Scratch of a flow-sweep launch: one int32 flag a block (a block
+    owns at least one tile, wider than :data:`FLOW_HALO`), from PyTorch's
+    allocator for each call, so that no two streams share it; the kernel's
+    entry point clears it on the launch's stream."""
+    return torch.empty(-(-width // FLOW_HALO), dtype=torch.int32,
+                       device=device)
 
 
 def transpose_planes(planes):

@@ -18,7 +18,13 @@ chunks of 1024·8 columns), and its ε = 0 fixpoint equals the native
 engine's fill.  The row-ring fill and accumulation sweeps are bitwise
 their plain versions at widths that cut the last tile short, on rows that
 are and are not 16-byte aligned (the float4 and the scalar consumers),
-at heights 1, 2 and one past the ring.
+at heights 1, 2 and one past the ring.  The D8 tile kernel is bitwise
+``d8_plain`` at widths 1 to 4099 and heights 1 to 3, on aligned and
+unaligned rows, and on values that leave its fast division's range.  The
+D∞ and multi-flow sweeps, whose tiles trade edge values, equal their plain
+versions and the plain sweep over whole rows at widths from 1 to 8300,
+on grids wider than the card's resident blocks, and through a whole Quinn
+fixpoint at 512².
 """
 
 import numpy as np
@@ -501,3 +507,133 @@ def test_row_ring_sweeps_seam_rule_perlin(dev):
     at, ones_t = ak.t().contiguous(), ones.t().contiguous()
     assert torch.equal(accum.accum_sweep(at, ones_t, fd_t, True),
                        accum.accum_sweep_plain(at, ones_t, fd_t, True))
+
+
+D8_WIDTHS = [1, 2, 3, 5, 31, 33, 1023, 1025, 4099]
+
+
+@pytest.mark.parametrize("width", D8_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_d8_tile_kernel_widths(dev, width, offset):
+    """D8 and D4 codes of the shared-memory tile kernel equal ``d8_plain``
+    at heights 1, 2 and 3, with nodata holes, many exact ties and cellsize
+    3; offset 0 runs the 16-byte path where the width is a multiple of 4,
+    offset 1 (inputs 1 element into their storage) the scalar path."""
+    for height in (1, 2, 3):
+        shape = (height, width)
+        z, _ = _dem(shape, dev, seed=width + height)
+        z = torch.round(z * 4) / 4
+        rng = np.random.default_rng(width)
+        mask = torch.from_numpy(rng.random(shape) < 0.1).to(dev)
+        for topology in ("D8", "D4"):
+            got = flowdirs.d8_core(_unaligned(z, offset),
+                                   _unaligned(mask, 3 * offset), 3.0,
+                                   topology)
+            assert torch.equal(got, flowdirs.d8_plain(z, mask, 3.0,
+                                                      topology))
+
+
+@pytest.mark.parametrize("cellsize", [3.0, 1e-7])
+def test_d8_tile_kernel_extreme_values(dev, cellsize):
+    """Blocks whose values leave the fast division's range (zeros, values
+    near the denormals or past 2^79, FLT_MAX as data, infinities, NaN) and
+    a cellsize below its range take the division itself; codes equal
+    ``d8_plain`` in D8 and D4 either way."""
+    shape = (70, 300)
+    rng = np.random.default_rng(4)
+    z = rng.uniform(-5.0, 5.0, shape).astype(np.float32)
+    z[::7, ::3] = 0.0
+    z[3, :40] = rng.uniform(0, 1e-38, 40)
+    z[40, 130:160] = rng.choice([1e30, -1e30, 3.4028235e38, np.inf, -np.inf,
+                                 np.nan, 1e-30], 30)
+    z[60:, 260:] = 2.0 ** -52
+    mask = torch.from_numpy(rng.random(shape) < 0.05).to(dev)
+    zt = torch.from_numpy(z).to(dev)
+    for topology in ("D8", "D4"):
+        got = flowdirs.d8_core(zt, mask, cellsize, topology)
+        assert torch.equal(got, flowdirs.d8_plain(zt, mask, cellsize,
+                                                  topology))
+
+
+def _flow_case(shape, dev, seed):
+    """The packed D∞ field and the Quinn planes of an ε-filled Perlin DEM
+    with nodata holes, float weights and a random start."""
+    z, mask = _dem(shape, dev, seed=seed)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=1e-2)
+    assert done
+    ang = torch.where(mask, -2.0, flowdirs.dinf_flowdirs(filled))
+    v = dinf.pack_two_tap(*dinf.unpack_two_tap(dinf.pack_two_tap(
+        *dinf.dinf_two_tap(ang)))).contiguous()
+    props = flowdirs.flow_proportions(filled, "Quinn")
+    planes = torch.where(mask, 0.0, props.permute(2, 0, 1)).contiguous()
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32))
+    acc = torch.from_numpy(rng.uniform(1.0, 50.0, shape).astype(np.float32))
+    w = torch.where(mask, 0.0, w.to(dev))
+    return acc.to(dev), w, {"dinf": v, "mfd": planes}
+
+
+FLOW_KINDS = {"dinf": (dinf.dinf_sweep, dinf.dinf_sweep_plain),
+              "mfd": (mfd.mfd_sweep, mfd.mfd_sweep_plain)}
+WHOLE_ROW = 1 << 30  # a tile wider than any row: no seam
+
+
+@pytest.mark.parametrize("shape", [(37, 1), (37, 45), (37, 257),
+                                   (37, 1025), (37, 3000), (48, 8300)])
+@pytest.mark.parametrize("kind", ["dinf", "mfd"])
+def test_flow_sweeps_exact_seams(dev, shape, kind):
+    """One tile, a ragged last tile and many tiles: each sweep, down and up,
+    equals its plain version at the kernel's tile rule (depths 1, 2, 4, 8,
+    16, 32 and 0: the one-barrier and the doubling scans) and, at every
+    depth but 0, the plain sweep over whole rows, bitwise; so does the
+    transposed sweep up at depths 8 and 0."""
+    sweep, plain = FLOW_KINDS[kind]
+    acc, w, fields = _flow_case(shape, dev, seed=shape[1])
+    field = fields[kind]
+    if kind == "dinf":
+        field_t = field.t().contiguous()  # a valid field, not the transpose
+    else:
+        field_t = mfd.transpose_planes(field)
+    for depth in (1, 2, 4, 8, 16, 32, 0):
+        for reverse in (False, True):
+            got = sweep(acc, w, field, reverse, depth)
+            assert torch.equal(got, plain(acc, w, field, reverse, depth))
+            if depth:
+                assert torch.equal(got, plain(acc, w, field, reverse, depth,
+                                              tile=WHOLE_ROW))
+    at, wt = acc.t().contiguous(), w.t().contiguous()
+    for depth in (8, 0):  # transposed: the height is the width
+        assert torch.equal(sweep(at, wt, field_t, True, depth),
+                           plain(at, wt, field_t, True, depth))
+
+
+def test_flow_sweep_wider_than_resident_blocks(dev):
+    """A raster with more tiles than the card holds blocks at once (each
+    block then walks a run of tiles): a multi-flow and a D∞ sweep equal
+    the plain sweep over whole rows at depth 8, down and up."""
+    tiles = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = (6, tiles * _build.FLOW_TILE + 77)
+    acc, w, fields = _flow_case(shape, dev, seed=9)
+    for kind, (sweep, plain) in FLOW_KINDS.items():
+        for reverse in (False, True):
+            got = sweep(acc, w, fields[kind], reverse, 8)
+            assert torch.equal(got, plain(acc, w, fields[kind], reverse, 8,
+                                          tile=WHOLE_ROW))
+
+
+def test_quinn_fixpoint_matches_whole_rows(dev):
+    """At 512² the kernel's Quinn fixpoint takes the rotations of the plain
+    sweep over whole rows, and has its values."""
+    z = tsynth.perlin_dem(512, 512, seed=0, device=dev)
+    filled, _, done = fill.fill_depressions_info(z, eps=1e-2)
+    assert done
+    planes = flowdirs.flow_proportions(filled, "Quinn").permute(2, 0, 1)
+    ones = torch.ones_like(z)
+    got, rk, dk = mfd.mfd_accumulation_info(planes, ones)
+
+    def whole(a, w, p, reverse, depth):
+        return mfd.mfd_sweep_plain(a, w, p, reverse, depth, tile=WHOLE_ROW)
+
+    ref, rp, dp = mfd.mfd_accumulation_info(planes, ones, sweep=whole)
+    assert dk and dp and rk == rp
+    assert torch.equal(got, ref)

@@ -216,8 +216,10 @@ def test_serpentine_converges_in_three_rotations_at_depth0():
 
 @pytest.mark.parametrize("depth", [1, 16, 0])
 def test_narrow_tiles_reach_the_same_fixpoint(depth):
-    """16-column tiles: seams read sweep-start values and windows close at
-    the tile edge, as in the kernel; the fixpoint is the same."""
+    """16-column tiles: across seams the row before is read at its new
+    values, windows up to FLOW_HALO columns run on across them and wider
+    ones (depth 0) close at the tile edge, as in the kernel; the fixpoint
+    is the same."""
     code, p, weights, mask = _case(True)
     sweep = functools.partial(_tiled_sweep, tile=16)
     acc, _, done = tdinf.dinf_accumulation_info(
@@ -231,6 +233,48 @@ def test_narrow_tiles_reach_the_same_fixpoint(depth):
 
 def _tiled_sweep(acc, w, v, reverse, depth, tile):
     return tdinf.dinf_sweep_plain(acc, w, v, reverse, depth, tile=tile)
+
+
+def _packed(nodata):
+    code, p, weights, mask = _case(nodata)
+    cq, pq = tdinf.unpack_two_tap(tdinf.pack_two_tap(
+        torch.from_numpy(code), torch.from_numpy(p)))
+    v = tdinf.pack_two_tap(cq, pq).contiguous()
+    v_t = tdinf.pack_two_tap(*tdinf.transpose_two_tap(cq, pq)).contiguous()
+    w = torch.from_numpy(np.where(mask, 0.0, weights).astype(np.float32))
+    return v, v_t, w
+
+
+@pytest.mark.parametrize("depth", [1, 8, 16])
+def test_seam_exact_sweeps_match_whole_rows(depth):
+    """With 8- and 16-column tiles one D∞ sweep equals the sweep over whole
+    rows, bitwise, down and up, and transposed (nodata holes, float
+    weights)."""
+    v, v_t, w = _packed(True)
+    acc = torch.from_numpy(np.random.default_rng(depth).uniform(
+        1.0, 50.0, tuple(w.shape)).astype(np.float32))
+    for a, wt, f in ((acc, w, v),
+                     (acc.t().contiguous(), w.t().contiguous(), v_t)):
+        for reverse in (False, True):
+            whole = _tiled_sweep(a, wt, f, reverse, depth, a.shape[1])
+            for tile in (8, 16):
+                assert torch.equal(
+                    _tiled_sweep(a, wt, f, reverse, depth, tile), whole)
+
+
+@pytest.mark.parametrize("depth", [1, 8])
+def test_narrow_tiles_take_the_one_tile_rotations(depth):
+    """The D∞ fixpoint with 8-column tiles takes the rotations of one tile
+    a row and has its values."""
+    code, p, weights, mask = _case(True)
+    w = torch.from_numpy(np.where(mask, 0.0, weights).astype(np.float32))
+    runs = [tdinf.dinf_accumulation_info(
+        torch.from_numpy(code), torch.from_numpy(p), w, depth=depth,
+        sweep=functools.partial(_tiled_sweep, tile=tile))
+        for tile in (8, code.shape[1])]
+    (acc8, rot8, done8), (acc1, rot1, done1) = runs
+    assert done8 and done1 and rot8 == rot1
+    assert torch.equal(acc8, acc1)
 
 
 def test_rotation_cap_raises():

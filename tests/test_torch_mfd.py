@@ -31,6 +31,7 @@ from richdem_tpu.ops import pallas_folded, pallas_mfd, pallas_scan
 from richdem_tpu.ops import pallas_sweeps
 from richdem_tpu.ops.flowdirs import flow_proportions as jax_proportions
 from richdem_tpu_torch import convert
+from richdem_tpu_torch._build import FLOW_HALO, FLOW_TILE
 from richdem_tpu_torch.ops import accum as tacc
 from richdem_tpu_torch.ops import mfd as tmfd
 
@@ -180,11 +181,57 @@ def _tiled_sweep(acc, w, planes, reverse, depth, tile):
     return tmfd.mfd_sweep_plain(acc, w, planes, reverse, depth, tile=tile)
 
 
+def _planes_weights(method, nodata):
+    props, weights, mask = _case(method, nodata)
+    planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(props, -1,
+                                                               0)))
+    return planes, torch.from_numpy(np.where(mask, 0.0, weights)
+                                    .astype(np.float32))
+
+
+@pytest.mark.parametrize("depth", [1, 8, 16])
+def test_seam_exact_sweeps_match_whole_rows(depth):
+    """With 8- and 16-column tiles one sweep equals the sweep over whole
+    rows, bitwise, down and up, and transposed (nodata holes, float
+    weights): the row before is read at its new values across tile edges
+    and windows up to FLOW_HALO columns run on across them."""
+    planes, w = _planes_weights("Quinn", True)
+    acc = torch.from_numpy(np.random.default_rng(depth).uniform(
+        1.0, 50.0, tuple(w.shape)).astype(np.float32))
+    cases = ((acc, w, planes),
+             (acc.t().contiguous(), w.t().contiguous(),
+              tmfd.transpose_planes(planes)))
+    for a, wt, p in cases:
+        for reverse in (False, True):
+            whole = _tiled_sweep(a, wt, p, reverse, depth, a.shape[1])
+            for tile in (8, 16):
+                assert torch.equal(
+                    _tiled_sweep(a, wt, p, reverse, depth, tile), whole)
+
+
+@pytest.mark.parametrize("depth", [1, 8])
+def test_narrow_tiles_take_the_one_tile_rotations(depth):
+    """The fixpoint with 8-column tiles takes the rotations of one tile a
+    row and has its values (a stale seam rule took more)."""
+    planes, w = _planes_weights("Quinn", False)
+    runs = [tmfd.mfd_accumulation_info(
+        planes, w, depth=depth,
+        sweep=functools.partial(_tiled_sweep, tile=tile))
+        for tile in (8, planes.shape[2])]
+    (acc8, rot8, done8), (acc1, rot1, done1) = runs
+    assert done8 and done1 and rot8 == rot1
+    assert torch.equal(acc8, acc1)
+
+
 def test_scan_window():
+    """Depth 0 and windows past FLOW_HALO are capped at the flow sweep's
+    tile; windows up to FLOW_HALO cross tile edges and are not."""
     assert [tmfd.scan_window(d) for d in (1, 2, 3, 8, 9, 32, 0)] == [
-        1, 2, 4, 8, 16, 32, 1024]
-    assert tmfd.scan_window(5000) == 1024
+        1, 2, 4, 8, 16, 32, FLOW_TILE]
+    assert tmfd.scan_window(5000) == FLOW_TILE
     assert tmfd.scan_window(0, tile=16) == 16
+    assert tmfd.scan_window(16, tile=8) == 16
+    assert tmfd.scan_window(FLOW_HALO + 1, tile=8) == 8
     with pytest.raises(ValueError):
         tmfd.scan_window(-1)
 

@@ -8,9 +8,11 @@ on the CPU, so only counts come out, never times.
 On a SIZE² Perlin DEM (seed 0, default 256) filled at ε = 1e-2 it runs
 each accumulation to its fixpoint with one tile spanning the row, then 4
 and 16 tiles a row, at depth 8 and 0 (the whole tile), and prints one JSON
-line per run: metric, depth, tile width, rotations.  Across a tile edge a
-sweep reads sweep-start values, as the kernels do; a row of one tile has
-no seam.
+line per run: metric, depth, tile width, rotations.  As in the kernels,
+the row before is read at its new values across a tile edge and an
+in-row window of up to ``FLOW_HALO`` columns runs on across it, so at
+depth 8 the tile width changes nothing; at depth 0 the window stops at
+the tile edge, closed with the neighbour column's sweep-start value.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
 ``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths``,
-``scan_widths`` and ``sweep_rows`` (all when none is named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
+``scan_widths``, ``sweep_rows`` and ``flow_tiles`` (all when none is
+named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
 step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
@@ -38,12 +39,23 @@ trace either: it times one scan fill sweep (``csrc/fill_scan.cu``, ε =
 with CUDA events (one warm-up call, then the mean of three) and prints one
 JSON line per width with the microseconds per row step and the number of
 8192-column chunks a row takes.  ``sweep_rows`` runs no trace either: it
-prints ``ptxas``'s registers and spill bytes of the fill and accumulation
-sweep kernels' entries, then times one fill sweep (ε = 0, from the fill's
-start) and one accumulation sweep (unit weights, D8 codes of the DEM) on
-10240-row Perlin rasters of widths 1024, 4096 and 10240 with CUDA events
-(one warm-up call, then the mean of three), and prints one JSON line per
-kernel and width with the microseconds per row step.
+prints ``ptxas``'s registers and spill bytes of the entries of the fill,
+accumulation, D8, multi-flow and D∞ kernels, then times one call of each
+on 10240-row Perlin rasters of widths 1024, 4096 and 10240 with CUDA
+events (one warm-up call, then the mean of three): a fill sweep (ε = 0,
+from the fill's start), an accumulation sweep (unit weights, D8 codes of
+the DEM), D8 codes, and a multi-flow (Quinn planes of the DEM) and a D∞
+sweep (its packed field) at in-row depths 1 and 8, from unit
+accumulation.  It prints one JSON line per kernel, depth and width with
+the milliseconds per call and the microseconds per row step.
+``flow_tiles`` runs no trace either: it builds the multi-flow and D∞
+sweeps at tile widths 128, 256 and 512, each with a 32- and a 64-column
+halo (``RD_FLOW_TILE``, ``RD_FLOW_HALO``; the port's own are
+``_build.FLOW_TILE`` and ``FLOW_HALO``), holds each against the plain
+sweep over whole rows on a 256×2100 raster at depths 1 and 8, then times
+one sweep of each at 10240² (Perlin seed 0, unit accumulation) with CUDA
+events and prints one JSON line per kernel, tile, halo and depth with the
+microseconds per row step, the registers and the spills.
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
@@ -80,13 +92,16 @@ PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
                 "Resolve": "resolve_sweep", "Strahler": "strahler_sweep",
                 "fill_scan_kernel": "fill_scan"}
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
-         "rho8", "api", "depths", "scan_widths", "sweep_rows")
+         "rho8", "api", "depths", "scan_widths", "sweep_rows", "flow_tiles")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
 SCAN_ROWS = 2048
 SCAN_WIDTHS = (1024, 4096, 8192, 8193, 10240, 16384)
 SWEEP_ROWS = 10240
 SWEEP_WIDTHS = (1024, 4096, 10240)
+#: (tile width, halo) of each flow-sweep build that ``flow_tiles`` times
+FLOW_TILES = ((128, 32), (256, 32), (512, 32), (128, 64), (256, 64),
+              (512, 64))
 
 
 def _group(name):
@@ -211,14 +226,16 @@ def scan_widths(dev, card):
 
 
 def sweep_rows(dev, card):
-    """Registers, spills and microseconds per row step of the fill and
-    accumulation sweeps."""
+    """Registers, spills and microseconds per row step of the fill,
+    accumulation, multi-flow and D∞ sweeps, and D8's time per call."""
     import torch
     from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps
+    from richdem_tpu_torch.ops import accum, dinf, fill, flowdirs, mfd, sweeps
 
     for name, kern in (("fill_sweep", fill.FILL_SWEEP),
-                       ("accum_sweep", accum.ACCUM_SWEEP)):
+                       ("accum_sweep", accum.ACCUM_SWEEP),
+                       ("d8", flowdirs.D8), ("mfd_sweep", mfd.MFD_SWEEP),
+                       ("dinf_sweep", dinf.DINF_SWEEP)):
         kern.function()
         print(json.dumps({"ptxas": name, "entries": kern.resources(),
                           "card": card}), flush=True)
@@ -226,18 +243,86 @@ def sweep_rows(dev, card):
         z = tsynth.perlin_dem(SWEEP_ROWS, width, seed=0, device=dev)
         w0 = torch.full_like(z, sweeps.BIG)
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        fd = flowdirs.d8_core(z, torch.zeros_like(z, dtype=torch.bool))
+        nd = torch.zeros_like(z, dtype=torch.bool)
+        fd = flowdirs.d8_core(z, nd)
         ones = torch.ones_like(z)
-        for name, call in (
-                ("fill_sweep",
-                 lambda: fill.fill_sweep(w0, z, 0.0, 0.0, False, flag)),
-                ("accum_sweep",
-                 lambda: accum.accum_sweep(ones, ones, fd, False))):
+        planes = flowdirs.flow_proportions(z, "Quinn").permute(
+            2, 0, 1).contiguous()
+        code, p = dinf.dinf_two_tap(flowdirs.dinf_flowdirs(z))
+        v = dinf.pack_two_tap(*dinf.unpack_two_tap(
+            dinf.pack_two_tap(code, p))).contiguous()
+        calls = [("fill_sweep", None,
+                  lambda: fill.fill_sweep(w0, z, 0.0, 0.0, False, flag)),
+                 ("accum_sweep", None,
+                  lambda: accum.accum_sweep(ones, ones, fd, False)),
+                 ("d8", None, lambda: flowdirs.d8_core(z, nd))]
+        for depth in (1, 8):
+            calls += [("mfd_sweep", depth,
+                       lambda d=depth: mfd.mfd_sweep(ones, ones, planes,
+                                                     False, d)),
+                      ("dinf_sweep", depth,
+                       lambda d=depth: dinf.dinf_sweep(ones, ones, v, False,
+                                                       d))]
+        for name, depth, call in calls:
             ms = _events_ms(call)
-            print(json.dumps({"sweep_rows": name, "rows": SWEEP_ROWS,
-                              "width": width, "ms": ms,
+            print(json.dumps({"sweep_rows": name, "depth": depth,
+                              "rows": SWEEP_ROWS, "width": width, "ms": ms,
                               "us_per_row": 1e3 * ms / SWEEP_ROWS,
                               "card": card}), flush=True)
+        del planes
+
+
+def flow_tiles(dev, card):
+    """The multi-flow and D∞ sweeps built at each tile width and halo:
+    registers, spills, a check against the plain sweep over whole rows,
+    and the microseconds per row step at 10240²."""
+    import torch
+    from richdem_tpu_torch import _build
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import dinf, flowdirs, mfd
+
+    z = tsynth.perlin_dem(SWEEP_ROWS, MAIN, seed=0, device=dev)
+    ones = torch.ones_like(z)
+    planes = flowdirs.flow_proportions(z, "Quinn").permute(
+        2, 0, 1).contiguous()
+    code, p = dinf.dinf_two_tap(flowdirs.dinf_flowdirs(z))
+    v = dinf.pack_two_tap(*dinf.unpack_two_tap(
+        dinf.pack_two_tap(code, p))).contiguous()
+    small = (slice(0, 256), slice(0, 2100))
+    sweeps = {"mfd_sweep": (mfd, "MFD_SWEEP", mfd.mfd_sweep,
+                            mfd.mfd_sweep_plain, planes,
+                            planes[:, small[0], small[1]].contiguous()),
+              "dinf_sweep": (dinf, "DINF_SWEEP", dinf.dinf_sweep,
+                             dinf.dinf_sweep_plain, v, v[small].contiguous())}
+    for name, (mod, attr, sweep, plain, field, field_s) in sweeps.items():
+        default = getattr(mod, attr)
+        for tile, halo in FLOW_TILES:
+            kern = _build.Kernel(default.name, default.symbol,
+                                 default.argtypes,
+                                 defines={"RD_FLOW_TILE": tile,
+                                          "RD_FLOW_HALO": halo})
+            kern.function()
+            setattr(mod, attr, kern)
+            try:
+                a_s = ones[small].contiguous()
+                for depth in (1, 8):
+                    got = sweep(a_s, a_s, field_s, False, depth)
+                    if not torch.equal(got, plain(a_s, a_s, field_s, False,
+                                                  depth, tile=1 << 30)):
+                        raise AssertionError(f"{name} at tile {tile}, "
+                                             f"depth {depth}: differs from "
+                                             "the whole-row plain sweep")
+                    ms = _events_ms(lambda d=depth: sweep(ones, ones, field,
+                                                          False, d))
+                    print(json.dumps({"flow_tiles": name, "tile": tile,
+                                      "halo": halo, "depth": depth,
+                                      "rows": SWEEP_ROWS,
+                                      "width": MAIN, "ms": ms,
+                                      "us_per_row": 1e3 * ms / SWEEP_ROWS,
+                                      "resources": kern.resources(),
+                                      "card": card}), flush=True)
+            finally:
+                setattr(mod, attr, default)
 
 
 def main():
@@ -308,6 +393,9 @@ def main():
             continue
         if name == "sweep_rows":
             sweep_rows(dev, card)
+            continue
+        if name == "flow_tiles":
+            flow_tiles(dev, card)
             continue
         res = trace(name, fns[name], out_dir)
         res["card"] = card
