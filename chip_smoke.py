@@ -20,10 +20,11 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    and 8 against the plain sweep over whole rows: the kernels' tile seams
    are exact), Rho8
    and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
-   transposed up and their fixpoints); Rho8's diagonal share on 256²
-   planes at θ = 10° and 30° within 0.015 of θ/45; the scan fill sweep
+   transposed up and their fixpoints: the resolve against the plain sweep
+   over whole rows); Rho8's diagonal share on 256² planes at θ = 10° and
+   30° within 0.015 of θ/45; the scan fill sweep
    down and up at ε = 0, ε = 1e-3 and D4 (``eps_diag = BIG/2``), also on a
-   48×8300 raster (several chunks of 8192 columns), and its fixpoint
+   48×8300 raster (a cluster of 16 CTAs), and its fixpoint
    against the folded engine's and the native float64 fill (bitwise at
    ε = 0; at ε = 1e-3 within ``ENGINES_ATOL`` and ``NATIVE_EPS_ATOL``);
 4. native gates — fill bit-exact against the port's copy of the
@@ -80,7 +81,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    transposed; the scan sweep down on the api DEM at its ε), then one call
    of each timed beside its bound, with each sweep's time per row step and
    each kernel's registers and spill bytes a thread from the build's
-   ``-Xptxas -v`` report.
+   ``-Xptxas -v`` report, the scan sweep's cluster and the resolve sweep's
+   tiles; pointer doubling's watershed labels timed on the d8_methods
+   codes beside the resolve sweep (another engine, a reference point).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the per-kernel JSON record; the last
@@ -110,7 +113,7 @@ GAUGES = 64  # upslope seeds of the d8_methods path
 JACOBI_SHAPE = (2048, 2176)  # Strahler order against the Jacobi fixpoint
 THETAS = (10.0, 30.0)  # Rho8's unbiasedness planes, degrees
 RHO8_SEEDS = (0, 7, -3)
-SCAN_WIDE = (48, 8300)  # the scan sweep over several chunks of 8192
+SCAN_WIDE = (48, 8300)  # the scan sweep over 16 CTAs, the last ragged
 SERPENTINE = 2048  # edge of the walled serpentine pit
 #: ε of the serpentine gate: a power of two, so every step of its 2²¹-cell
 #: ramp (up to about 2048) is exact in float32
@@ -192,10 +195,11 @@ PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "strahler_sweep": "d8_methods", "fill_scan": "api"}
 #: Kernels redesigned since their port, and in which PR: the row-ring fill
 #: and accumulation sweeps (``csrc/row_ring.cuh``), the shared-memory D8
-#: tile, and the flow sweeps whose tiles trade edge values
-#: (``csrc/flow_sweep.cuh``).
+#: tile, the flow sweeps whose tiles trade edge values
+#: (``csrc/flow_sweep.cuh``), the scan fill sweep over a thread-block
+#: cluster and the resolve sweep's seam-exact narrow tiles.
 REDESIGNED = {"fill_sweep": 6, "accum_sweep": 6, "d8": 7, "mfd_sweep": 7,
-              "dinf_sweep": 7}
+              "dinf_sweep": 7, "fill_scan": 8, "resolve_sweep": 8}
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
 #: Depths at which those sweeps are held against the plain sweep over whole
@@ -609,6 +613,12 @@ def phase_build(kernels):
         for job in jobs:
             job.result()
     RESOURCES.update({k.name: kernel_resources(k) for k in kernels})
+    from richdem_tpu_torch.ops import fill, successor
+    SHAPES["fill_scan"] = fill.fill_scan_shape(MAIN)
+    SHAPES["resolve_sweep"] = successor.resolve_shape()
+    log("build", f"scan fill sweep at {MAIN} columns: {SHAPES['fill_scan']}"
+        f", {RESOURCES['fill_scan']}; resolve sweep: "
+        f"{SHAPES['resolve_sweep']}, {RESOURCES['resolve_sweep']}")
     log("build", f"{len(kernels)} kernels and the native engine loaded in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k.name} " + ("cached" if k.build_seconds is None
@@ -757,8 +767,8 @@ def phase_kernel_vs_plain(dev, err):
 
 def phase_scan_vs_plain(dev, err):
     """The scan fill sweep against its plain version at 1000×1100 with
-    nodata holes (ε = 0, ε = 1e-3, D4) and on a 48×8300 raster (several
-    chunks), then the scan engine's fixpoint against the folded engine's
+    nodata holes (ε = 0, ε = 1e-3, D4) and on a 48×8300 raster (a cluster
+    of 16 CTAs), then the scan engine's fixpoint against the folded engine's
     and the native engine's float64 fill: bitwise at ε = 0; at ε = 1e-3
     within ENGINES_ATOL of each other and NATIVE_EPS_ATOL of native."""
     import torch
@@ -782,7 +792,7 @@ def phase_scan_vs_plain(dev, err):
                 f"{SCAN_WIDE[0]}x{SCAN_WIDE[1]}, eps 1e-3")
     log("kernel-vs-plain", f"scan fill sweep down and up: bitwise at {shape} "
         f"(eps 0, eps 1e-3, D4) and at {SCAN_WIDE[0]}x{SCAN_WIDE[1]} "
-        "(two chunks of 8192 columns)")
+        f"({fill.fill_scan_shape(SCAN_WIDE[1])})")
     dem64 = z.double().cpu().numpy()
     for eps in (0.0, 1e-3):
         got, it_s, done_s = fill.fill_depressions_info(z, mask, eps=eps,
@@ -1276,6 +1286,9 @@ def kernel_resources(kernel):
 #: Per kernel, its registers and spills (``kernel_resources``), filled in
 #: by the build phase.
 RESOURCES = {}
+#: The launch shapes of the scan sweep (its cluster at MAIN columns) and
+#: of the resolve sweep (its tiles), filled in by the build phase.
+SHAPES = {}
 
 
 def time_kernel(name, kern, plain, card, times, what):
@@ -1623,9 +1636,19 @@ def phase_methods_timing(dev, card, dm, r8, err, times):
     bitwise("rho8", ((got, ref), (r8["codes"], ref)), err, f"{MAIN}x{MAIN}")
     log("timing", f"resolve (watersheds, upslope) and Strahler sweeps at "
         f"{MAIN}x{MAIN} on the d8_methods path's codes, down and transposed "
-        f"up, and Rho8 codes on the rho8 path's surface: bitwise")
+        f"up (the resolve against the plain sweep over whole rows), and Rho8 "
+        f"codes on the rho8 path's surface: bitwise")
     for name, (kern, plain) in calls.items():
         time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
+    # a reference point beside the resolve sweep, not a yardstick: pointer
+    # doubling is another engine, and a fixpoint, not one sweep
+    from richdem_tpu_torch import methods
+    methods.watersheds_doubling(fd)
+    ms = cuda_ms(lambda: methods.watersheds_doubling(fd), reps=3)
+    log("timing", f"watersheds_doubling (pointer doubling, the whole "
+        f"labelling) on the d8_methods codes at {MAIN}x{MAIN}: {ms:.3f} ms "
+        f"per call on [{card}]; the resolve sweep's tiles: "
+        f"{SHAPES['resolve_sweep']}")
 
 
 def api_step(rd):
@@ -1785,7 +1808,7 @@ def phase_scan_timing(dev, card, dem, mask, eps, err, times):
     bitwise("fill_scan", ((got, ref),), err,
             f"{MAIN}x{MAIN}, the api DEM, down")
     log("timing", f"scan fill sweep at {MAIN}x{MAIN} down on the api DEM: "
-        "bitwise to plain")
+        f"bitwise to plain; its cluster: {SHAPES['fill_scan']}")
 
 
 def main():
@@ -1845,6 +1868,7 @@ def main():
          "bound_ms": times[k.name]["bound_ms"],
          "bound_by": times[k.name]["bound_by"],
          "library_ms": None, **RESOURCES[k.name],
+         **({"launch_shape": SHAPES[k.name]} if k.name in SHAPES else {}),
          **({"redesigned_in": REDESIGNED[k.name]}
             if k.name in REDESIGNED else {})}
         for k in kernels]}

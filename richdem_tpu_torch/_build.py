@@ -21,7 +21,8 @@ import subprocess
 import threading
 
 __all__ = ["Kernel", "SWEEP_TILE", "SWEEP_STAGES", "FLOW_TILE",
-           "FLOW_HALO", "NVCC_FLAGS",
+           "FLOW_HALO", "RESOLVE_TILE", "RESOLVE_HALO", "SCAN_CLUSTER",
+           "SCAN_THREADS", "NVCC_FLAGS",
            "find_nvcc", "ptxas_resources", "stream_handle"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -52,13 +53,32 @@ FLOW_TILE = 128
 #: rows.
 FLOW_HALO = 64
 
+#: Columns of one tile of the resolve sweep (``csrc/resolve_sweep.cu``),
+#: and the columns past each edge that its block stages and takes new
+#: values of from its neighbours every ``RESOLVE_HALO`` rows.  Its seams
+#: are exact: one sweep is the sweep over whole rows at every tile width.
+#: Chosen on an H100 (PERF.md: ``tools/torch_profile.py resolve_tiles``).
+RESOLVE_TILE = 128
+RESOLVE_HALO = 64
+
+#: The scan fill sweep's cluster (``csrc/fill_scan.cu``): the most CTAs
+#: it holds (above 8, a non-portable cluster size) and the most consumer
+#: threads a CTA.  The shape never changes the result.  Chosen on an H100
+#: (PERF.md: ``tools/torch_profile.py scan_widths``).
+SCAN_CLUSTER = 16
+SCAN_THREADS = 256
+
 #: Exact IEEE float32: no FMA contraction (plain fill and D8 codes are held
 #: bitwise), no fast math.  ``-Xptxas -v`` only reports resources.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DRD_TILE={SWEEP_TILE}",
               f"-DRD_STAGES={SWEEP_STAGES}", f"-DRD_FLOW_TILE={FLOW_TILE}",
-              f"-DRD_FLOW_HALO={FLOW_HALO}"]
+              f"-DRD_FLOW_HALO={FLOW_HALO}",
+              f"-DRD_RESOLVE_TILE={RESOLVE_TILE}",
+              f"-DRD_RESOLVE_HALO={RESOLVE_HALO}",
+              f"-DRD_SCAN_CLUSTER={SCAN_CLUSTER}",
+              f"-DRD_SCAN_THREADS={SCAN_THREADS}"]
 
 #: Where a CUDA toolkit lives when ``CUDA_HOME`` is unset and ``nvcc`` is
 #: not on ``PATH``.
@@ -155,6 +175,16 @@ class Kernel:
                 fn.restype = ctypes.c_int
                 self._fn = fn
             return self._fn
+
+    def entry(self, symbol: str, argtypes):
+        """Another C entry point of this kernel's library (built if
+        needed), returning an ``int``; it launches nothing and counts no
+        launch."""
+        self.function()
+        fn = getattr(ctypes.CDLL(self.library), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
 
     def resources(self) -> dict:
         """``ptxas``'s report of the last build, by entry function (its

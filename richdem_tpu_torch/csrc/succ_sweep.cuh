@@ -1,7 +1,7 @@
 // One directional Gauss-Seidel sweep over int32 values and int8 D8 codes,
-// shared by resolve_sweep.cu (V(c) <- V(successor(c)), pinned cells kept)
-// and strahler_sweep.cu (Strahler order from the orders of the cells that
-// flow in).  The rule of one cell is the op's; everything else lives here.
+// the walk of strahler_sweep.cu (Strahler order from the orders of the
+// cells that flow in).  The rule of one cell is the op's (a template
+// parameter); everything else lives here.
 //
 // Walking a row-major (H, W) raster down (REV = 0) or up (REV = 1), row r
 // sees, through a Nbhd of three staged rows (index -1 west, 0, +1 east):
@@ -9,9 +9,8 @@
 //   l: sweep-start values of its own row;
 //   n: sweep-start values of the row after;
 // and the codes of all three rows.  This is what
-// richdem_tpu/ops/pallas_folded.py:_resolve_kernel and _strahler_kernel read
-// within a strip.  Rows and columns off the grid read the op's OFF value and
-// code 0.
+// richdem_tpu/ops/pallas_folded.py:_strahler_kernel reads within a strip.
+// Rows and columns off the grid read the op's OFF value and code 0.
 //
 // What bounds it on an H100: the row-to-row dependency, as in
 // accum_sweep.cu, whose structure it keeps: one thread per column in a

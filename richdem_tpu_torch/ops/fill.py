@@ -40,7 +40,8 @@ from richdem_tpu_torch.ops.sweeps import (BIG, fill_fixpoint_core,
                                           fill_sweep_plain)
 
 __all__ = ["FILL_SWEEP", "FILL_SCAN", "FILL_ENGINES", "fill_engine",
-           "fill_sweep", "fill_scan_sweep", "auto_epsilon",
+           "fill_sweep", "fill_scan_sweep", "fill_scan_shape",
+           "auto_epsilon",
            "fill_depressions_info", "fill_depressions", "fill_epsilon",
            "MULTISCALE_MIN"]
 
@@ -121,6 +122,22 @@ def fill_scan_sweep(w_in, floor, eps, eps_diag, reverse, flag):
                                      flag)
     return _launch_sweep(FILL_SCAN, w_in, floor, eps, eps_diag, reverse,
                          flag)
+
+
+def fill_scan_shape(width):
+    """The scan kernel's launch for rows of ``width`` columns, from its
+    library (built if needed): ``cluster`` CTAs, ``segment`` columns a
+    CTA, consumer ``threads`` a CTA, ``columns`` a thread, ring ``stages``
+    and ``shared_bytes`` a CTA.  Raises if rows that wide do not fit."""
+    out = (ctypes.c_int * 6)()
+    rc = FILL_SCAN.entry("rd_fill_scan_shape", [ctypes.c_int,
+                                                ctypes.c_void_p])(width, out)
+    if rc != 0:
+        raise ValueError(f"the scan fill kernel takes no rows of {width} "
+                         "columns (its segment rows do not fit shared "
+                         "memory)")
+    return dict(zip(("cluster", "segment", "threads", "columns", "stages",
+                     "shared_bytes"), out))
 
 
 def _f32(x) -> float:

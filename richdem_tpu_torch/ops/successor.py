@@ -11,12 +11,14 @@ transposed down, transposed up; the transposed sweeps read codes through
 so a rotation that changes nothing is exact convergence, and a loop that
 reaches ``max_rotations`` first raises (the reference returns silently).
 
-A CUDA tensor goes through ``csrc/resolve_sweep.cu`` and
-``csrc/strahler_sweep.cu`` (one walk, ``csrc/succ_sweep.cuh``); a CPU
-tensor through :func:`resolve_sweep_plain` and :func:`strahler_sweep_plain`,
-which read tile seams as the kernels do, so one sweep is bitwise the
-kernel's.  The resolve's pin rides in the sign bit of the code byte
-(:func:`pack_codes`).
+A CUDA tensor goes through ``csrc/resolve_sweep.cu`` (narrow tiles that
+trade edge values, so one sweep is the sweep over whole rows) and
+``csrc/strahler_sweep.cu`` (``csrc/succ_sweep.cuh``: 1024-column tiles
+whose seams read the row before at sweep-start values); a CPU tensor
+through :func:`resolve_sweep_plain` (whole rows) and
+:func:`strahler_sweep_plain` (the Strahler kernel's seams), so one sweep
+is bitwise the kernel's.  The resolve's pin rides in the sign bit of the
+code byte (:func:`pack_codes`).
 
 :func:`successor_table` (flat successor indices) serves the plain pointer
 doubling of :mod:`richdem_tpu_torch.methods` and of
@@ -39,13 +41,16 @@ from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
 
 __all__ = ["RESOLVE_SWEEP", "STRAHLER_SWEEP", "successor_table",
            "effective_codes", "pack_codes", "transpose_codes",
-           "resolve_sweep_plain", "resolve_sweep", "successor_resolve_info",
+           "resolve_sweep_plain", "resolve_sweep", "resolve_shape",
+           "successor_resolve_info",
            "successor_resolve", "strahler_sweep_plain", "strahler_sweep",
            "strahler_fixpoint_info", "strahler_fixpoint"]
 
 _P = ctypes.c_void_p
-_SWEEP_ARGS = [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
-RESOLVE_SWEEP = Kernel("resolve_sweep", "rd_resolve_sweep", _SWEEP_ARGS)
+_INT = ctypes.c_int
+_SWEEP_ARGS = [_P, _P, _P, _INT, _INT, _INT, _P]
+RESOLVE_SWEEP = Kernel("resolve_sweep", "rd_resolve_sweep",
+                       [_P, _P, _P, _INT, _INT, _INT, _P, _INT, _P])
 STRAHLER_SWEEP = Kernel("strahler_sweep", "rd_strahler_sweep", _SWEEP_ARGS)
 
 #: What an off-grid cell reads as in each sweep (the kernels' ``OFF``).
@@ -120,13 +125,13 @@ def _walk(v_in, code, reverse, off, tile, rule):
     ``rule(prev, prev_code, own, own_code, after, after_code)`` gives its
     new values from (W + 2)-padded rows: ``prev`` the (west, centre, east)
     views of the new values of the row before, read at their sweep-start
-    values across a tile edge of ``tile`` columns as the kernels read them;
-    ``own`` and ``after`` sweep-start values.  Off-grid cells read ``off``
-    and code 0."""
+    values across a tile edge of ``tile`` columns as the Strahler kernel
+    reads them (``tile`` None: whole rows, no seam); ``own`` and ``after``
+    sweep-start values.  Off-grid cells read ``off`` and code 0."""
     h, wd = v_in.shape
     dev = v_in.device
     out = torch.empty_like(v_in)
-    lseam, rseam = seam_columns(wd, tile, dev)
+    lseam, rseam = seam_columns(wd, tile or max(wd, 1), dev)
     rows = list(range(h - 1, -1, -1) if reverse else range(h))
     step = -1 if reverse else 1
     p = torch.full((wd + 2,), off, dtype=v_in.dtype, device=dev)
@@ -151,12 +156,11 @@ def _walk(v_in, code, reverse, off, tile, rule):
     return out
 
 
-def resolve_sweep_plain(v_in, code, reverse, tile=SWEEP_TILE):
-    """Plain version of the resolve-sweep kernel (``csrc/resolve_sweep.cu``).
-    ``code``: :func:`pack_codes` bytes.  ``tile``: width of the kernel's
-    column tiles; across a tile edge the row before is read at its
-    sweep-start values, as the kernel reads it, so one sweep is bitwise the
-    kernel's."""
+def resolve_sweep_plain(v_in, code, reverse):
+    """Plain version of the resolve-sweep kernel (``csrc/resolve_sweep.cu``):
+    the sweep over whole rows, which is the kernel's at every tile width
+    (its tiles trade edge values), so one sweep is bitwise the kernel's.
+    ``code``: :func:`pack_codes` bytes."""
     before = 1 if reverse else -1  # the dy of the row before
 
     def rule(prev, _pc, lv, lc, nv, _nc):
@@ -170,13 +174,15 @@ def resolve_sweep_plain(v_in, code, reverse, tile=SWEEP_TILE):
             new = torch.where(d == dd, src[dx + 1], new)
         return torch.where(here < 0, own, new)
 
-    return _walk(v_in, code, reverse, RESOLVE_OFF, tile, rule)
+    return _walk(v_in, code, reverse, RESOLVE_OFF, None, rule)
 
 
 def strahler_sweep_plain(o_in, code, reverse, tile=SWEEP_TILE):
     """Plain version of the Strahler-sweep kernel
-    (``csrc/strahler_sweep.cu``).  ``code``: int8 codes 0..8.  ``tile``: as
-    in :func:`resolve_sweep_plain`; one sweep is bitwise the kernel's."""
+    (``csrc/strahler_sweep.cu``).  ``code``: int8 codes 0..8.  ``tile``:
+    width of the kernel's column tiles; across a tile edge the row before
+    is read at its sweep-start values, as the kernel reads it, so one
+    sweep is bitwise the kernel's."""
     (ns, nw, ne), (os_, ow, oe) = accumulation_trios(reverse)
     zero = torch.zeros((), dtype=o_in.dtype, device=o_in.device)
 
@@ -209,24 +215,45 @@ def _checked(v_in, code, what):
                              f"tensor shaped and placed like the values")
 
 
-def _launch(kernel, v_in, code, reverse, what):
+def _launch(kernel, v_in, code, reverse, what, flagged=False):
+    """Check and launch out of place.  ``flagged``: the kernel also takes
+    its blocks' flags, one int32 a block (a block owns at least one tile,
+    of 32 columns or more in any build), from PyTorch's allocator for each
+    call, so that no two streams share them; the kernel's entry point
+    clears them on the launch's stream."""
     _checked(v_in, code, what)
     h, wd = v_in.shape
     out = torch.empty_like(v_in)
     if h == 0 or wd == 0:
         return out
+    extra = ()
+    if flagged:
+        flags = torch.empty(-(-wd // 32), dtype=torch.int32,
+                            device=v_in.device)
+        extra = (flags.data_ptr(), flags.numel())
     kernel.launch(v_in.data_ptr(), code.data_ptr(), out.data_ptr(), h, wd,
-                  int(bool(reverse)), stream_handle(v_in.device))
+                  int(bool(reverse)), *extra, stream_handle(v_in.device))
     return out
 
 
 def resolve_sweep(v_in, code, reverse):
     """One directional resolve sweep (down, or up if ``reverse``), out of
     place.  A CUDA tensor launches ``csrc/resolve_sweep.cu`` (raising if it
-    cannot be built or launched); a CPU tensor runs the plain version."""
+    cannot be built or launched, its cooperative launch included); a CPU
+    tensor runs the plain version."""
     if not v_in.is_cuda:
         return resolve_sweep_plain(v_in, code, reverse)
-    return _launch(RESOLVE_SWEEP, v_in, code, reverse, "resolve sweep")
+    return _launch(RESOLVE_SWEEP, v_in, code, reverse, "resolve sweep",
+                   flagged=True)
+
+
+def resolve_shape():
+    """The resolve kernel's walk, from its library (built if needed):
+    ``tile`` and ``halo`` columns, consumer ``threads`` a block, ring
+    ``stages``."""
+    out = (ctypes.c_int * 4)()
+    RESOLVE_SWEEP.entry("rd_resolve_shape", [_P])(out)
+    return dict(zip(("tile", "halo", "threads", "stages"), out))
 
 
 def strahler_sweep(o_in, code, reverse):

@@ -11,12 +11,15 @@ multi-flow sweeps are bitwise at 1000×1100 in every depth mode (1, a
 window, the whole tile), down and transposed up.  Rho8 codes are bitwise
 the plain version's for the same seed (the kernel's ``tanf`` and
 ``torch.tan`` on the card agree), and the resolve and Strahler sweeps are
-bitwise, down and transposed up, and so are their fixpoints.  The scan
-fill sweep is bitwise its plain version down and up at ε = 0, ε = 1e-3 and
-D4, at widths below 1024, not a multiple of 1024, and above 8192 (several
-chunks of 1024·8 columns), and its ε = 0 fixpoint equals the native
-engine's fill.  The row-ring fill and accumulation sweeps are bitwise
-their plain versions at widths that cut the last tile short, on rows that
+bitwise, down and transposed up, and so are their fixpoints; the resolve
+kernel, built at several tile widths and halos and on grids wider than the
+card's resident blocks, equals the plain sweep over whole rows.  The scan
+fill sweep (a thread-block cluster a row) is bitwise its plain version
+down and up at ε = 0, ε = 1e-3 and D4, at widths that give one CTA, a
+ragged last CTA, 16 CTAs and many columns a thread, and its ε = 0
+fixpoint equals the native engine's fill.  The row-ring fill and
+accumulation sweeps are bitwise their plain versions at widths that cut
+the last tile short, on rows that
 are and are not 16-byte aligned (the float4 and the scalar consumers),
 at heights 1, 2 and one past the ring.  The D8 tile kernel is bitwise
 ``d8_plain`` at widths 1 to 4099 and heights 1 to 3, on aligned and
@@ -307,6 +310,59 @@ def test_resolve_sweep_kernel_matches_plain(dev, succ_codes, kind):
     assert dk and dp and rk == rp and torch.equal(got, ref)
 
 
+#: (tile, halo) builds of the resolve kernel: its default, wider tiles,
+#: a narrower halo and narrower tiles
+RESOLVE_TILES = [(128, 64), (256, 64), (512, 64), (128, 32), (64, 32)]
+
+
+@pytest.mark.parametrize("tile,halo", RESOLVE_TILES)
+def test_resolve_sweep_any_tile_width(dev, succ_codes, tile, halo):
+    """Built at each tile width and halo, the resolve kernel's sweep, down
+    and transposed up, equals the plain sweep over whole rows at 1000×1100
+    with nodata holes and codes that point off the grid (top row N, left
+    column W), for watershed and upslope starts: one sweep does not
+    depend on the tile."""
+    default = successor.RESOLVE_SWEEP
+    kern = _build.Kernel(default.name, default.symbol, default.argtypes,
+                         defines={"RD_RESOLVE_TILE": tile,
+                                  "RD_RESOLVE_HALO": halo})
+    fd = succ_codes.clone()
+    fd[0, 1:][fd[0, 1:] >= 0] = 3
+    fd[1:, 0][fd[1:, 0] >= 0] = 1
+    successor.RESOLVE_SWEEP = kern
+    try:
+        assert successor.resolve_shape()["tile"] == tile
+        for kind in ("watersheds", "upslope"):
+            fd_eff, init, pinned = _resolve_start(fd, kind)
+            code = successor.pack_codes(fd_eff, pinned)
+            vk = successor.resolve_sweep(init, code, False)
+            assert torch.equal(vk, successor.resolve_sweep_plain(init, code,
+                                                                 False))
+            vt, code_t = vk.t().contiguous(), successor.transpose_codes(code)
+            assert torch.equal(successor.resolve_sweep(vt, code_t, True),
+                               successor.resolve_sweep_plain(vt, code_t,
+                                                             True))
+    finally:
+        successor.RESOLVE_SWEEP = default
+
+
+def test_resolve_sweep_wider_than_resident_blocks(dev):
+    """A raster with more tiles than the card holds blocks at once (each
+    block then walks a run of tiles and trades edges every row): down and
+    up sweeps equal the plain sweep over whole rows."""
+    tiles = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = (5, tiles * _build.RESOLVE_TILE + 77)
+    rng = np.random.default_rng(11)
+    fd = torch.from_numpy(rng.integers(-1, 9, shape).astype(np.int8)).to(dev)
+    for kind in ("watersheds", "upslope"):
+        fd_eff, init, pinned = _resolve_start(fd, kind)
+        code = successor.pack_codes(fd_eff, pinned)
+        for reverse in (False, True):
+            assert torch.equal(
+                successor.resolve_sweep(init, code, reverse),
+                successor.resolve_sweep_plain(init, code, reverse))
+
+
 def test_strahler_sweep_kernel_matches_plain(dev, succ_codes):
     fd = succ_codes
     o0 = (fd >= 0).to(torch.int32)
@@ -338,8 +394,35 @@ def test_methods_match_doubling_and_jacobi(dev, succ_codes):
                        methods.strahler_jacobi(fd, max_iters=1 << 16))
 
 
-SCAN_SHAPES = [(300, 1100), (40, 8300), (1030, 45), (20, 20000)]
+#: One CTA (45 columns, a tall thin raster); a ragged last CTA (1100: 3
+#: CTAs of 367, 367 and 366 columns); 16 CTAs, the last ragged (8300);
+#: every thread of every CTA walking several columns (20000 and wider; at
+#: 100000, 25 a thread and two ring stages).
+SCAN_SHAPES = [(300, 1100), (48, 8300), (1030, 45), (20, 20000),
+               (8, 40000), (6, 100000)]
 SCAN_COSTS = [(0.0, 0.0), (1e-3, 1e-3), (0.0, sweeps.BIG / 2)]
+
+
+def test_fill_scan_cluster_shapes(dev):
+    """The widths of SCAN_SHAPES give every cluster shape: one CTA, a
+    ragged last CTA, 16 CTAs, several columns a thread; a row too wide for
+    shared memory raises, at the shape and at the launch."""
+    shapes = {w: fill.fill_scan_shape(w) for w in (45, 1100, 8300, 10240,
+                                                   40000, 100000)}
+    assert shapes[45]["cluster"] == 1
+    assert shapes[1100]["cluster"] == 3 and 1100 % shapes[1100][
+        "segment"] != 0
+    assert shapes[8300]["cluster"] == shapes[10240]["cluster"] == 16
+    assert shapes[10240]["columns"] == 3
+    assert shapes[40000]["columns"] > 3 and shapes[100000]["columns"] > 20
+    for shape in shapes.values():
+        assert shape["segment"] <= shape["threads"] * shape["columns"]
+    with pytest.raises(ValueError):
+        fill.fill_scan_shape(400000)
+    z = torch.zeros((2, 400000), device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        fill.fill_scan_sweep(z, z, 0.0, 0.0, False, flag)
 
 
 @pytest.mark.parametrize("shape", SCAN_SHAPES)

@@ -7,8 +7,10 @@ walks of ``tests/reference_impls.py``, and, for the sweeps themselves, the
 TPU engines ``successor_resolve_folded`` and ``strahler_folded`` in
 interpret mode with small folds and strips.  All results are integers and
 every fixpoint is unique on an acyclic code raster, so every comparison is
-exact.  The plain sweeps are also run with 32-column tiles, so that seams
-(read at sweep-start values) fall inside the grid.
+exact.  One plain resolve sweep is also held against a cell-by-cell sweep
+over whole rows, and the plain Strahler sweeps are run with 32-column
+tiles, so that its seams (read at sweep-start values) fall inside the
+grid.
 """
 
 import functools
@@ -29,6 +31,7 @@ from richdem_tpu.ops import flowdirs as jflow
 from richdem_tpu.ops import pallas_folded
 import richdem_tpu_torch as rt
 from richdem_tpu_torch import methods as tm
+from richdem_tpu_torch import topology
 from richdem_tpu_torch.ops import accum as tacc
 from richdem_tpu_torch.ops import fill as tfill
 from richdem_tpu_torch.ops import flowdirs as tflow
@@ -162,10 +165,34 @@ def _tile32(plain):
     return lambda v, code, rev: plain(v, code, rev, tile=32)
 
 
+def _resolve_cell_by_cell(v, code, reverse):
+    """One resolve sweep over whole rows, one cell at a time in sweep order:
+    a successor in the row before is read at its new value, one in the
+    cell's own row or the row after at its sweep-start value, one off the
+    grid as -1; pinned (negative code byte) and NO_FLOW cells keep theirs."""
+    h, w = v.shape
+    out = v.copy()
+    before = 1 if reverse else -1
+    for r in (range(h - 1, -1, -1) if reverse else range(h)):
+        for c in range(w):
+            d = int(code[r, c])
+            if d <= 0:
+                continue
+            rr, cc = r + int(topology.DY[d]), c + int(topology.DX[d])
+            if not (0 <= rr < h and 0 <= cc < w):
+                out[r, c] = -1
+            else:
+                out[r, c] = (out if rr - r == before else v)[rr, cc]
+    return out
+
+
 def test_plain_sweeps_cross_seams():
-    """32-column tiles on a 96×200 raster with nodata holes and cells that
-    point off the grid: six seams a row, each read at sweep-start values.
-    One sweep differs from the one-tile sweep, the fixpoints do not."""
+    """A 96×200 raster with nodata holes and cells that point off the grid.
+    One resolve sweep, down and up, is the sweep over whole rows read cell
+    by cell (the resolve kernel's tiles trade edge values, so no tile
+    width shows).  The Strahler sweep with 32-column tiles (six seams a
+    row, each read at sweep-start values) differs from the one-tile sweep
+    after one sweep; neither fixpoint does."""
     fd = _codes((96, 200), 3, True)
     t = torch.from_numpy(fd)
     fd_eff = S.effective_codes(t)
@@ -173,25 +200,27 @@ def test_plain_sweeps_cross_seams():
     init = torch.where(pinned, torch.arange(fd.size, dtype=torch.int32)
                        .view(fd.shape), -1)
     code = S.pack_codes(fd_eff, pinned)
-    one = S.resolve_sweep_plain(init, code, False, tile=1024)
-    seams = S.resolve_sweep_plain(init, code, False, tile=32)
-    assert not torch.equal(one, seams)
-    lab, r32, done = S.successor_resolve_info(fd_eff, init, pinned,
-                                              sweep=_tile32(
-                                                  S.resolve_sweep_plain))
-    _, r1, _ = S.successor_resolve_info(fd_eff, init, pinned)
-    assert done and r32 >= r1
+    for reverse in (False, True):
+        np.testing.assert_array_equal(
+            S.resolve_sweep_plain(init, code, reverse).numpy(),
+            _resolve_cell_by_cell(init.numpy(), code.numpy(), reverse))
+    lab, _, done = S.successor_resolve_info(fd_eff, init, pinned)
+    assert done
     np.testing.assert_array_equal(lab.numpy(), terminal_labels(fd))
     seeds = torch.from_numpy(_seeds(fd, 1))
     up, _, done = S.successor_resolve_info(
-        fd_eff, seeds.to(torch.int32), seeds | pinned,
-        sweep=_tile32(S.resolve_sweep_plain))
+        fd_eff, seeds.to(torch.int32), seeds | pinned)
     assert done
     np.testing.assert_array_equal((up > 0).numpy(),
                                   upslope_numpy(seeds.numpy(), fd))
-    order, _, done = S.strahler_fixpoint_info(
+    o0 = (t >= 0).to(torch.int32)
+    sc = t.clamp(min=0).to(torch.int8)
+    assert not torch.equal(S.strahler_sweep_plain(o0, sc, False, tile=1024),
+                           S.strahler_sweep_plain(o0, sc, False, tile=32))
+    order, r32, done = S.strahler_fixpoint_info(
         t, sweep=_tile32(S.strahler_sweep_plain))
-    assert done
+    _, r1, _ = S.strahler_fixpoint_info(t)
+    assert done and r32 >= r1
     np.testing.assert_array_equal(order.numpy(), strahler_numpy(fd))
 
 

@@ -8,9 +8,9 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
 ``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths``,
-``scan_widths``, ``sweep_rows`` and ``flow_tiles`` (all when none is
-named).  Paths, at 10240² on a Perlin DEM (seed 0), each after one warm-up
-step:
+``scan_widths``, ``sweep_rows``, ``flow_tiles`` and ``resolve_tiles``
+(all when none is named).  Paths, at 10240² on a Perlin DEM (seed 0),
+each after one warm-up step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
   config 3, ``bench.py``'s default);
@@ -34,19 +34,26 @@ the D∞ and Quinn accumulations at in-row scan depths 1, 8, 32 and 0 with
 CUDA events (one warm-up call, then the mean of three) and prints one JSON
 line per metric and depth with the rotations and the milliseconds per call,
 from which the port's default depths are chosen.  ``scan_widths`` runs no
-trace either: it times one scan fill sweep (``csrc/fill_scan.cu``, ε =
-1e-3, from the fill's start) on 2048-row Perlin rasters of several widths
-with CUDA events (one warm-up call, then the mean of three) and prints one
-JSON line per width with the microseconds per row step and the number of
-8192-column chunks a row takes.  ``sweep_rows`` runs no trace either: it
+trace either: it builds the scan fill sweep (``csrc/fill_scan.cu``) at
+several cluster sizes and most threads a CTA (``SCAN_BUILDS``, through
+``RD_SCAN_CLUSTER`` and ``RD_SCAN_THREADS``), beside the port's own build and
+a profiling build (``RD_SCAN_PROFILE``: the cycles of each part of a row
+step, ``SCAN_PARTS``, on CTA 0's first thread), holds each against its
+plain version on 64 rows, and times one sweep of each (ε = 1e-3, from
+the fill's start) on 2048-row Perlin rasters of several widths with CUDA
+events (one warm-up call, then the mean of three); one JSON line per
+width and build with the microseconds per row step, the launch shape
+(CTAs, columns and threads a CTA, columns a thread), the registers and
+the spills.  ``sweep_rows`` runs no trace either: it
 prints ``ptxas``'s registers and spill bytes of the entries of the fill,
-accumulation, D8, multi-flow and D∞ kernels, then times one call of each
-on 10240-row Perlin rasters of widths 1024, 4096 and 10240 with CUDA
-events (one warm-up call, then the mean of three): a fill sweep (ε = 0,
-from the fill's start), an accumulation sweep (unit weights, D8 codes of
-the DEM), D8 codes, and a multi-flow (Quinn planes of the DEM) and a D∞
-sweep (its packed field) at in-row depths 1 and 8, from unit
-accumulation.  It prints one JSON line per kernel, depth and width with
+accumulation, D8, multi-flow, D∞, resolve and scan kernels, then times one
+call of each on 10240-row Perlin rasters of widths 1024, 4096 and 10240
+with CUDA events (one warm-up call, then the mean of three): a fill sweep
+(ε = 0, from the fill's start), an accumulation sweep (unit weights, D8
+codes of the DEM), D8 codes, a resolve sweep (watershed start on those
+codes), a scan fill sweep (ε = 1e-3), and a multi-flow (Quinn planes of
+the DEM) and a D∞ sweep (its packed field) at in-row depths 1 and 8, from
+unit accumulation.  It prints one JSON line per kernel, depth and width with
 the milliseconds per call and the microseconds per row step.
 ``flow_tiles`` runs no trace either: it builds the multi-flow and D∞
 sweeps at tile widths 128, 256 and 512, each with a 32- and a 64-column
@@ -56,12 +63,18 @@ sweep over whole rows on a 256×2100 raster at depths 1 and 8, then times
 one sweep of each at 10240² (Perlin seed 0, unit accumulation) with CUDA
 events and prints one JSON line per kernel, tile, halo and depth with the
 microseconds per row step, the registers and the spills.
+``resolve_tiles`` runs no trace either: it builds the resolve sweep at
+the tile widths and halos of ``RESOLVE_TILES`` (``RD_RESOLVE_TILE``,
+``RD_RESOLVE_HALO``; the port's own are ``_build.RESOLVE_TILE`` and
+``RESOLVE_HALO``), holds each against the plain sweep over whole rows on
+a 256×2100 raster, and times one sweep of each at 10240² on the flat-
+resolved codes of the main path's ε = 0 fill (watershed start).
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
 step, the device busy time (the union of the kernel, memcpy and memset
 intervals of the trace), the idle share (1 − busy / wall), and device time
-and launch count by group: each of the port's ten kernels by its CUDA
+and launch count by group: each of the port's eleven kernels by its CUDA
 function name, the rest by the name of the PyTorch kernel (up to 14
 groups).  The card's
 ``name, power.limit`` comes first.  Imports nothing of JAX.
@@ -88,15 +101,28 @@ PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
                 # flow_sweep_kernel, instantiated per field
                 "DinfField": "dinf_sweep", "MfdField": "mfd_sweep",
                 "rho8_kernel": "rho8",
+                "resolve_sweep_kernel": "resolve_sweep",
                 # succ_sweep_kernel, instantiated per rule
-                "Resolve": "resolve_sweep", "Strahler": "strahler_sweep",
+                "Strahler": "strahler_sweep",
                 "fill_scan_kernel": "fill_scan"}
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
-         "rho8", "api", "depths", "scan_widths", "sweep_rows", "flow_tiles")
+         "rho8", "api", "depths", "scan_widths", "sweep_rows", "flow_tiles",
+         "resolve_tiles")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
 SCAN_ROWS = 2048
 SCAN_WIDTHS = (1024, 4096, 8192, 8193, 10240, 16384)
+#: (cluster size, most threads a CTA) of each scan-sweep build that
+#: ``scan_widths`` times (``RD_SCAN_CLUSTER``, ``RD_SCAN_THREADS``; the
+#: port's own are ``_build.SCAN_CLUSTER`` and ``SCAN_THREADS``)
+SCAN_BUILDS = ((16, 128), (16, 512), (8, 256), (4, 256))
+#: the parts of a scan row step that the profiling build counts
+SCAN_PARTS = ("set-up", "maps", "warp scans and CTA barrier",
+              "scan over the warps and sends", "aggregates' wait",
+              "carries and columns", "ring wait and CTA barrier")
+#: (tile width, halo) of each resolve-sweep build that ``resolve_tiles``
+#: times
+RESOLVE_TILES = ((64, 32), (128, 32), (128, 64), (256, 64), (512, 64))
 SWEEP_ROWS = 10240
 SWEEP_WIDTHS = (1024, 4096, 10240)
 #: (tile width, halo) of each flow-sweep build that ``flow_tiles`` times
@@ -206,23 +232,108 @@ def _events_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
+def _variant(default, defines):
+    """``default`` built with ``defines`` into a library of its own."""
+    from richdem_tpu_torch import _build
+
+    kern = _build.Kernel(default.name, default.symbol, default.argtypes,
+                         defines=defines)
+    kern.function()
+    return kern
+
+
 def scan_widths(dev, card):
-    """Microseconds per row step of one scan fill sweep at each width."""
+    """Microseconds per row step of one scan fill sweep at each width, for
+    each cluster size and most threads a CTA; the profiling build's cycles
+    by part of a row step."""
+    import ctypes
+
     import torch
     from richdem_tpu_torch import synth as tsynth
     from richdem_tpu_torch.ops import fill, sweeps
 
+    default = fill.FILL_SCAN
+    default.function()
+    builds = [(f"cluster {c}, up to {t} threads",
+               _variant(default, {"RD_SCAN_CLUSTER": c,
+                                  "RD_SCAN_THREADS": t}))
+              for c, t in SCAN_BUILDS]
+    profile = _variant(default, {"RD_SCAN_PROFILE": 1})
+    builds += [("the port's own", default), ("profiling", profile)]
     for width in SCAN_WIDTHS:
         z = tsynth.perlin_dem(SCAN_ROWS, width, seed=0, device=dev)
         w0 = torch.full_like(z, sweeps.BIG)
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        ms = _events_ms(
-            lambda: fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False, flag))
-        k = min(-(-width // 1024), 8)
-        print(json.dumps({"scan_widths": width, "rows": SCAN_ROWS,
-                          "chunks": -(-width // (1024 * k)), "ms": ms,
-                          "us_per_row": 1e3 * ms / SCAN_ROWS,
-                          "card": card}), flush=True)
+        ref = sweeps.fill_scan_sweep_plain(w0[:64].contiguous(),
+                                           z[:64].contiguous(), 1e-3, 1e-3,
+                                           False, flag)
+        for name, kern in builds:
+            fill.FILL_SCAN = kern
+            try:
+                got = fill.fill_scan_sweep(w0[:64].contiguous(),
+                                           z[:64].contiguous(), 1e-3, 1e-3,
+                                           False, flag)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"scan sweep ({name}) differs "
+                                         "from its plain version")
+                ms = _events_ms(lambda: fill.fill_scan_sweep(
+                    w0, z, 1e-3, 1e-3, False, flag))
+                rec = {"scan_widths": width, "build": name,
+                       "rows": SCAN_ROWS, "ms": ms,
+                       "us_per_row": 1e3 * ms / SCAN_ROWS,
+                       "shape": fill.fill_scan_shape(width),
+                       "resources": kern.resources(), "card": card}
+                if kern is profile:
+                    cycles = (ctypes.c_ulonglong * 8)()
+                    kern.entry("rd_fill_scan_profile",
+                               [ctypes.c_void_p])(cycles)
+                    rec["cycles_per_row"] = dict(zip(
+                        SCAN_PARTS, (v / SCAN_ROWS for v in cycles)))
+                print(json.dumps(rec), flush=True)
+            finally:
+                fill.FILL_SCAN = default
+
+
+def resolve_tiles(dev, card):
+    """The resolve sweep built at each tile width and halo: registers,
+    spills, a check against the plain sweep over whole rows, and the
+    microseconds per row step at 10240² on the codes of a Perlin DEM."""
+    import torch
+    from richdem_tpu_torch import resolve_flats
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import fill, flowdirs, successor
+
+    z = tsynth.perlin_dem(SWEEP_ROWS, MAIN, seed=0, device=dev)
+    filled, _, _ = fill.fill_depressions_info(z, eps=0.0, max_iters=256)
+    fd = resolve_flats(filled, flowdirs.d8_core(filled, torch.zeros_like(
+        z, dtype=torch.bool)))
+    fd_eff = successor.effective_codes(fd)
+    pinned = fd_eff == 0
+    idx = torch.arange(fd.numel(), dtype=torch.int32,
+                       device=dev).view(fd.shape)
+    init = torch.where(pinned, idx, -1)
+    code = successor.pack_codes(fd_eff, pinned)
+    small = (slice(0, 256), slice(0, 2100))
+    i_s, c_s = init[small].contiguous(), code[small].contiguous()
+    ref = successor.resolve_sweep_plain(i_s, c_s, False)
+    default = successor.RESOLVE_SWEEP
+    for tile, halo in RESOLVE_TILES:
+        kern = _variant(default, {"RD_RESOLVE_TILE": tile,
+                                  "RD_RESOLVE_HALO": halo})
+        successor.RESOLVE_SWEEP = kern
+        try:
+            if not torch.equal(successor.resolve_sweep(i_s, c_s, False), ref):
+                raise AssertionError(f"resolve at tile {tile}, halo {halo}: "
+                                     "differs from the whole-row sweep")
+            ms = _events_ms(lambda: successor.resolve_sweep(init, code,
+                                                            False))
+            print(json.dumps({"resolve_tiles": tile, "halo": halo,
+                              "rows": SWEEP_ROWS, "width": MAIN, "ms": ms,
+                              "us_per_row": 1e3 * ms / SWEEP_ROWS,
+                              "resources": kern.resources(), "card": card}),
+                  flush=True)
+        finally:
+            successor.RESOLVE_SWEEP = default
 
 
 def sweep_rows(dev, card):
@@ -230,12 +341,15 @@ def sweep_rows(dev, card):
     accumulation, multi-flow and D∞ sweeps, and D8's time per call."""
     import torch
     from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch.ops import accum, dinf, fill, flowdirs, mfd, sweeps
+    from richdem_tpu_torch.ops import (accum, dinf, fill, flowdirs, mfd,
+                                       successor, sweeps)
 
     for name, kern in (("fill_sweep", fill.FILL_SWEEP),
                        ("accum_sweep", accum.ACCUM_SWEEP),
                        ("d8", flowdirs.D8), ("mfd_sweep", mfd.MFD_SWEEP),
-                       ("dinf_sweep", dinf.DINF_SWEEP)):
+                       ("dinf_sweep", dinf.DINF_SWEEP),
+                       ("resolve_sweep", successor.RESOLVE_SWEEP),
+                       ("fill_scan", fill.FILL_SCAN)):
         kern.function()
         print(json.dumps({"ptxas": name, "entries": kern.resources(),
                           "card": card}), flush=True)
@@ -251,11 +365,22 @@ def sweep_rows(dev, card):
         code, p = dinf.dinf_two_tap(flowdirs.dinf_flowdirs(z))
         v = dinf.pack_two_tap(*dinf.unpack_two_tap(
             dinf.pack_two_tap(code, p))).contiguous()
+        fd_eff = successor.effective_codes(fd)
+        pinned = fd_eff == 0
+        idx = torch.arange(fd.numel(), dtype=torch.int32,
+                           device=dev).view(fd.shape)
+        init = torch.where(pinned, idx, -1)
+        code_r = successor.pack_codes(fd_eff, pinned)
         calls = [("fill_sweep", None,
                   lambda: fill.fill_sweep(w0, z, 0.0, 0.0, False, flag)),
                  ("accum_sweep", None,
                   lambda: accum.accum_sweep(ones, ones, fd, False)),
-                 ("d8", None, lambda: flowdirs.d8_core(z, nd))]
+                 ("d8", None, lambda: flowdirs.d8_core(z, nd)),
+                 ("resolve_sweep", None,
+                  lambda: successor.resolve_sweep(init, code_r, False)),
+                 ("fill_scan", None,
+                  lambda: fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False,
+                                               flag))]
         for depth in (1, 8):
             calls += [("mfd_sweep", depth,
                        lambda d=depth: mfd.mfd_sweep(ones, ones, planes,
@@ -396,6 +521,9 @@ def main():
             continue
         if name == "flow_tiles":
             flow_tiles(dev, card)
+            continue
+        if name == "resolve_tiles":
+            resolve_tiles(dev, card)
             continue
         res = trace(name, fns[name], out_dir)
         res["card"] = card
