@@ -20,9 +20,10 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    and 8 against the plain sweep over whole rows: the kernels' tile seams
    are exact), Rho8
    and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
-   transposed up and their fixpoints: the resolve against the plain sweep
-   over whole rows); Rho8's diagonal share on 256² planes at θ = 10° and
-   30° within 0.015 of θ/45; the scan fill sweep
+   transposed up and their fixpoints; the distance, resolve and Strahler
+   sweeps against the plain sweeps over whole rows); Rho8's diagonal share
+   on 256² planes at θ = 10° and 30° within 0.015 of θ/45; the scan fill
+   sweep
    down and up at ε = 0, ε = 1e-3 and D4 (``eps_diag = BIG/2``), also on a
    48×8300 raster (a cluster of 16 CTAs), and its fixpoint
    against the folded engine's and the native float64 fill (bitwise at
@@ -81,9 +82,10 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    transposed; the scan sweep down on the api DEM at its ε), then one call
    of each timed beside its bound, with each sweep's time per row step and
    each kernel's registers and spill bytes a thread from the build's
-   ``-Xptxas -v`` report, the scan sweep's cluster and the resolve sweep's
-   tiles; pointer doubling's watershed labels timed on the d8_methods
-   codes beside the resolve sweep (another engine, a reference point).
+   ``-Xptxas -v`` report, the scan sweep's cluster and the tiles of the
+   distance, resolve and Strahler sweeps; pointer doubling's watershed
+   labels timed on the d8_methods codes beside the resolve sweep (another
+   engine, a reference point).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the per-kernel JSON record; the last
@@ -197,9 +199,12 @@ PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
 #: and accumulation sweeps (``csrc/row_ring.cuh``), the shared-memory D8
 #: tile, the flow sweeps whose tiles trade edge values
 #: (``csrc/flow_sweep.cuh``), the scan fill sweep over a thread-block
-#: cluster and the resolve sweep's seam-exact narrow tiles.
+#: cluster, and the seam-exact narrow tiles of the resolve sweep, then of
+#: the distance and Strahler sweeps on the same walk
+#: (``csrc/seam_walk.cuh``).
 REDESIGNED = {"fill_sweep": 6, "accum_sweep": 6, "d8": 7, "mfd_sweep": 7,
-              "dinf_sweep": 7, "fill_scan": 8, "resolve_sweep": 8}
+              "dinf_sweep": 7, "fill_scan": 8, "resolve_sweep": 8,
+              "dist_sweep": 9, "strahler_sweep": 9}
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
 #: Depths at which those sweeps are held against the plain sweep over whole
@@ -382,8 +387,8 @@ def dist_starts(ff, ctx, modes):
 
 def dist_down_and_transposed_up(filled, fd, mask, modes, err, what):
     """For each mode, a down sweep and then a transposed up sweep of the
-    distance kernel and of its plain version from the same start, results
-    and change flags held bitwise."""
+    distance kernel and of its plain version (the sweep over whole rows)
+    from the same start, results and change flags held bitwise."""
     import torch
     from richdem_tpu_torch.ops import flats, sweeps
 
@@ -478,7 +483,8 @@ def absorbed_mass(acc, props):
 
 def succ_sweep_pair(name, v0, code, code_t, err, what):
     """A down sweep, then a transposed up sweep of its result, of the
-    resolve or Strahler kernel and of its plain version, held bitwise."""
+    resolve or Strahler kernel and of its plain version (the sweep over
+    whole rows), held bitwise."""
     from richdem_tpu_torch.ops import successor
 
     kern, plain = {
@@ -613,12 +619,16 @@ def phase_build(kernels):
         for job in jobs:
             job.result()
     RESOURCES.update({k.name: kernel_resources(k) for k in kernels})
-    from richdem_tpu_torch.ops import fill, successor
+    from richdem_tpu_torch.ops import fill, flats, successor
     SHAPES["fill_scan"] = fill.fill_scan_shape(MAIN)
     SHAPES["resolve_sweep"] = successor.resolve_shape()
+    SHAPES["dist_sweep"] = flats.dist_shape()
+    SHAPES["strahler_sweep"] = successor.strahler_shape()
     log("build", f"scan fill sweep at {MAIN} columns: {SHAPES['fill_scan']}"
-        f", {RESOURCES['fill_scan']}; resolve sweep: "
-        f"{SHAPES['resolve_sweep']}, {RESOURCES['resolve_sweep']}")
+        f", {RESOURCES['fill_scan']}; "
+        + "; ".join(f"{name}: {SHAPES[name]}, {RESOURCES[name]}"
+                    for name in ("resolve_sweep", "dist_sweep",
+                                 "strahler_sweep")))
     log("build", f"{len(kernels)} kernels and the native engine loaded in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k.name} " + ("cached" if k.build_seconds is None
@@ -740,7 +750,8 @@ def phase_kernel_vs_plain(dev, err):
     moved = dist_down_and_transposed_up(filled0, fd0, mask,
                                         sweeps.DIST_MODES, err, shape)
     log("kernel-vs-plain", f"distance sweep, every mode, down and "
-        f"transposed up: bitwise (cells lowered: {moved})")
+        f"transposed up: bitwise to the plain sweep over whole rows, change "
+        f"flags included (cells lowered: {moved})")
 
     # D∞ and multi-flow sweeps on this DEM's ε = 1e-2 fill, nodata holes
     # routing nothing, from a random start
@@ -1287,7 +1298,8 @@ def kernel_resources(kernel):
 #: by the build phase.
 RESOURCES = {}
 #: The launch shapes of the scan sweep (its cluster at MAIN columns) and
-#: of the resolve sweep (its tiles), filled in by the build phase.
+#: of the sweeps on the seam-exact walk (their tiles), filled in by the
+#: build phase.
 SHAPES = {}
 
 
@@ -1383,7 +1395,8 @@ def phase_timing(dev, card, out, z, err, times):
     log("timing", f"every kernel against its plain version at {MAIN}x{MAIN}"
         f" (fill: a rotation, also at {zc.shape[0]}x{zc.shape[1]}; "
         f"accumulation: down and transposed up; distance: towards, away "
-        f"and maxd, down and transposed up, cells lowered {moved}; "
+        f"and maxd, down and transposed up, against the plain sweep over "
+        f"whole rows, cells lowered {moved}; "
         f"terrain: 8 attributes): bitwise, {'/'.join(ATAN)} within rtol "
         f"{ATAN_RTOL}")
 
@@ -1636,8 +1649,8 @@ def phase_methods_timing(dev, card, dm, r8, err, times):
     bitwise("rho8", ((got, ref), (r8["codes"], ref)), err, f"{MAIN}x{MAIN}")
     log("timing", f"resolve (watersheds, upslope) and Strahler sweeps at "
         f"{MAIN}x{MAIN} on the d8_methods path's codes, down and transposed "
-        f"up (the resolve against the plain sweep over whole rows), and Rho8 "
-        f"codes on the rho8 path's surface: bitwise")
+        f"up (against the plain sweeps over whole rows), and Rho8 codes on "
+        f"the rho8 path's surface: bitwise")
     for name, (kern, plain) in calls.items():
         time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
     # a reference point beside the resolve sweep, not a yardstick: pointer
@@ -1647,8 +1660,9 @@ def phase_methods_timing(dev, card, dm, r8, err, times):
     ms = cuda_ms(lambda: methods.watersheds_doubling(fd), reps=3)
     log("timing", f"watersheds_doubling (pointer doubling, the whole "
         f"labelling) on the d8_methods codes at {MAIN}x{MAIN}: {ms:.3f} ms "
-        f"per call on [{card}]; the resolve sweep's tiles: "
-        f"{SHAPES['resolve_sweep']}")
+        f"per call on [{card}]; the tiles of the resolve sweep: "
+        f"{SHAPES['resolve_sweep']}, of the Strahler sweep: "
+        f"{SHAPES['strahler_sweep']}")
 
 
 def api_step(rd):

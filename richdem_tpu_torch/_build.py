@@ -21,7 +21,8 @@ import subprocess
 import threading
 
 __all__ = ["Kernel", "SWEEP_TILE", "SWEEP_STAGES", "FLOW_TILE",
-           "FLOW_HALO", "RESOLVE_TILE", "RESOLVE_HALO", "SCAN_CLUSTER",
+           "FLOW_HALO", "RESOLVE_TILE", "RESOLVE_HALO", "DIST_TILE",
+           "DIST_HALO", "STRAHLER_TILE", "STRAHLER_HALO", "SCAN_CLUSTER",
            "SCAN_THREADS", "NVCC_FLAGS",
            "find_nvcc", "ptxas_resources", "stream_handle"]
 
@@ -29,9 +30,9 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 
-#: Columns owned by one thread block of the sweep kernels; one thread per
-#: column.  The plain versions take the same value so that a single sweep
-#: (stale seams included) is bitwise the kernel's.
+#: Columns owned by one thread block of the fill and accumulation sweeps.
+#: Their plain versions take the same value so that a single sweep (stale
+#: seams included) is bitwise the kernel's.
 SWEEP_TILE = 1024
 
 #: Rows in the shared-memory ring of the fill and accumulation sweeps
@@ -53,13 +54,18 @@ FLOW_TILE = 128
 #: rows.
 FLOW_HALO = 64
 
-#: Columns of one tile of the resolve sweep (``csrc/resolve_sweep.cu``),
-#: and the columns past each edge that its block stages and takes new
-#: values of from its neighbours every ``RESOLVE_HALO`` rows.  Its seams
-#: are exact: one sweep is the sweep over whole rows at every tile width.
-#: Chosen on an H100 (PERF.md: ``tools/torch_profile.py resolve_tiles``).
+#: Columns of one tile of the sweeps on the seam-exact walk
+#: (``csrc/seam_walk.cuh``: the resolve, distance and Strahler sweeps), and
+#: the columns past each edge that a block stages and takes new values of
+#: from its neighbours every ``*_HALO`` rows.  Their seams are exact: one
+#: sweep is the sweep over whole rows at every tile width.  Chosen on an
+#: H100 (PERF.md: ``tools/torch_profile.py walk_tiles``).
 RESOLVE_TILE = 128
 RESOLVE_HALO = 64
+DIST_TILE = 128
+DIST_HALO = 64
+STRAHLER_TILE = 128
+STRAHLER_HALO = 32
 
 #: The scan fill sweep's cluster (``csrc/fill_scan.cu``): the most CTAs
 #: it holds (above 8, a non-portable cluster size) and the most consumer
@@ -77,6 +83,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               f"-DRD_FLOW_HALO={FLOW_HALO}",
               f"-DRD_RESOLVE_TILE={RESOLVE_TILE}",
               f"-DRD_RESOLVE_HALO={RESOLVE_HALO}",
+              f"-DRD_DIST_TILE={DIST_TILE}", f"-DRD_DIST_HALO={DIST_HALO}",
+              f"-DRD_STRAHLER_TILE={STRAHLER_TILE}",
+              f"-DRD_STRAHLER_HALO={STRAHLER_HALO}",
               f"-DRD_SCAN_CLUSTER={SCAN_CLUSTER}",
               f"-DRD_SCAN_THREADS={SCAN_THREADS}"]
 

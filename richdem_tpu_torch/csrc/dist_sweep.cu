@@ -25,31 +25,33 @@
 // integers, so the sweep order (and the scan kernel's in-row tropical
 // scans) changes only the number of rotations, never the result.
 //
-// What bounds it on an H100: the row-to-row dependency, as in
-// fill_sweep.cu, whose structure it keeps: one thread per column, 1024-
-// column tiles (a 10240-wide raster gives 10 blocks for 132 SMs), each block
-// walking all H rows in order with one barrier per row.  The new row before
-// and its z and flags sit in shared memory; the global loads of the next PF
-// rows are issued PF steps ahead into registers.  A neighbour across a tile
-// edge is read at its sweep-start value (from `w_in`), which only delays
-// convergence of the monotone fixpoint and keeps every run deterministic.
+// The walk is seam_walk.cuh: narrow tiles (_build.DIST_TILE, DIST_HALO)
+// that trade edge values, so one sweep is the sweep over whole rows,
+// whatever the tile (bitwise).  A stage holds the sweep-start w of row r
+// and the z and flags of rows r - 1 and r; z and flags never change, so
+// ghost columns read the same as their owners.
 //
-// Change flag: one atomicOr per block into `changed` when any cell of the
-// block changed; every sweep is idempotent at the fixpoint.
+// What bounds it on an H100: the row-to-row dependency.  Per cell a sweep
+// reads w, z and a flag byte and writes w, 13 bytes; a cell's rule is 3
+// tests, adds and minima, so a row step is the latency of its shared-
+// memory reads, its rule and one barrier.
+//
+// Change flag: one atomicOr per block into `changed` when any cell the
+// block owns changed (ghost columns do not count); every sweep is
+// idempotent at the fixpoint.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "seam_walk.cuh"
 
-#ifndef RD_TILE
-#define RD_TILE 1024
+#ifndef RD_DIST_TILE
+#define RD_DIST_TILE 128
+#endif
+#ifndef RD_DIST_HALO
+#define RD_DIST_HALO 64
 #endif
 
 namespace {
 
-constexpr int TILE = RD_TILE;
-constexpr int PF = 4;              // rows of loads kept in flight per thread
 constexpr float BIG = 1.0e30f;     // unreached
-constexpr float ZBIG = 3.0e37f;    // elevation of nodata and off-grid cells
 constexpr float ZVALID = 2.9e37f;  // z < ZVALID: a data elevation
 constexpr int F_DATA = 1, F_NOFLOW = 2, F_INFLAT = 4;
 constexpr int NF_IN = F_NOFLOW | F_INFLAT;
@@ -71,149 +73,96 @@ __device__ __forceinline__ bool nb_ok(int sn) {
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(TILE)
-dist_sweep_kernel(const float* __restrict__ w_in,
-                  const float* __restrict__ zr,
-                  const int8_t* __restrict__ fl,
-                  float* __restrict__ w_out, int* __restrict__ changed,
-                  int h, int w, float step, int reverse) {
-  // the row before (new w; z and flags), one halo column on either side
-  __shared__ float pw[2][TILE + 2];
-  __shared__ float pz[2][TILE + 2];
-  __shared__ int8_t ps[2][TILE + 2];
-  const int tx = threadIdx.x;
-  const int c0 = blockIdx.x * TILE;
-  const int ncols = min(TILE, w - c0);
-  const int c = c0 + tx;
-  const bool own = tx < ncols;
-  const bool has_l = c0 > 0;
-  const bool has_r = c0 + ncols < w;
-
-  // this column's w, z, flags; tile-edge halo (thread 0): w and z of
-  // columns c0 - 1 and c0 + ncols, their flags packed as l | r << 8
-  float wb[PF], zb[PF], lw[PF], rw[PF], lz[PF], rz[PF];
-  int sb[PF], hs[PF];
-  auto row_base = [&](int k) -> size_t {
-    return static_cast<size_t>(reverse ? h - 1 - k : k) *
-           static_cast<size_t>(w);
+struct DistSweep {
+  using T = float;
+  static constexpr T OFF = BIG;
+  static constexpr int TILE = RD_DIST_TILE;
+  static constexpr int HALO = RD_DIST_HALO;
+  static constexpr bool FLAG = true;
+  // slots: w of row r; z of rows r - 1 and r; flags of rows r - 1 and r
+  static constexpr int NSLOT = 5, OWN = 0;
+  struct Args {
+    const float* w_in;
+    const float* z;
+    const int8_t* fl;
+    int* changed;
+    float step;
   };
-  auto load = [&](int k, float& wv, float& zv, int& sv, float& lwv,
-                  float& rwv, float& lzv, float& rzv, int& hv) {
-    if (k < h) {
-      const size_t base = row_base(k);
-      if (own) {
-        wv = w_in[base + c];
-        zv = zr[base + c];
-        sv = fl[base + c];
-      }
-      if (tx == 0) {
-        int ls = 0, rs = 0;
-        if (has_l) {
-          lwv = w_in[base + c0 - 1];
-          lzv = zr[base + c0 - 1];
-          ls = fl[base + c0 - 1];
-        }
-        if (has_r) {
-          rwv = w_in[base + c0 + ncols];
-          rzv = zr[base + c0 + ncols];
-          rs = fl[base + c0 + ncols];
-        }
-        hv = ls | (rs << 8);
-      }
-    }
-  };
+  __host__ __device__ static constexpr int elem(int q) { return q < 3 ? 4 : 1; }
+  __host__ __device__ static constexpr int row(int q) {
+    return q == 1 || q == 3 ? -1 : 0;
+  }
+  __device__ static const void* raster(const Args& a, int q) {
+    return q == 0 ? static_cast<const void*>(a.w_in)
+                  : (q < 3 ? static_cast<const void*>(a.z)
+                           : static_cast<const void*>(a.fl));
+  }
+  __device__ static int* changed(const Args& a) { return a.changed; }
 
+  // min(w, min over the admissible NW, N, NE of the row before of their
+  // new w + step); off the grid z = ZBIG and flags 0 admit nothing.  Every
+  // operand is read and the tests are selects, so a warp does not diverge
+  // (a column off the grid reads stage bytes that the test then ignores).
+  template <int REV, class View, class Before>
+  __device__ static T update(const Args& a, const View& v, int i, int w,
+                             Before before) {
+    const float wr = v.template at<float>(0, i);
+    const float zc = v.template at<float>(2, i);
+    const int sc = v.template at<int8_t>(4, i);
+    const bool ok = v.prev && zc < ZVALID && cell_ok<MODE>(sc);
+    float cand = BIG;
 #pragma unroll
-  for (int j = 0; j < PF; ++j) {
-    wb[j] = lw[j] = rw[j] = BIG;
-    zb[j] = lz[j] = rz[j] = ZBIG;
-    sb[j] = hs[j] = 0;
-    load(j, wb[j], zb[j], sb[j], lw[j], rw[j], lz[j], rz[j], hs[j]);
-  }
-  // the row before the first one is off-grid
-  pw[1][tx + 1] = BIG;
-  pz[1][tx + 1] = ZBIG;
-  ps[1][tx + 1] = 0;
-  if (tx == 0) {
-    pw[1][0] = pw[1][TILE + 1] = BIG;
-    pz[1][0] = pz[1][TILE + 1] = ZBIG;
-    ps[1][0] = ps[1][TILE + 1] = 0;
-  }
-  __syncthreads();
-
-  int any = 0;
-  for (int k0 = 0; k0 < h; k0 += PF) {
-#pragma unroll
-    for (int j = 0; j < PF; ++j) {
-      const int k = k0 + j;
-      if (k < h) {  // uniform across the block
-        const int pb = (k + 1) & 1, qb = k & 1;
-        const float wr = wb[j], zc = zb[j], lwh = lw[j], rwh = rw[j];
-        const float lzh = lz[j], rzh = rz[j];
-        const int sc = sb[j], hh = hs[j];
-        load(k + PF, wb[j], zb[j], sb[j], lw[j], rw[j], lz[j], rz[j],
-             hs[j]);
-        if (own) {
-          float cand = BIG;
-          if (zc < ZVALID && cell_ok<MODE>(sc)) {
-#pragma unroll
-            for (int o = 0; o < 3; ++o) {  // NW, N, NE of the row before
-              const float zn = pz[pb][tx + o];
-              if (zn == zc && nb_ok<MODE>(ps[pb][tx + o])) {
-                const float v = pw[pb][tx + o] + step;
-                cand = v < cand ? v : cand;
-              }
-            }
-          }
-          const float nv = cand < wr ? cand : wr;
-          w_out[row_base(k) + c] = nv;
-          any |= (nv != wr);
-          pw[qb][tx + 1] = nv;
-          pz[qb][tx + 1] = zc;
-          ps[qb][tx + 1] = static_cast<int8_t>(sc);
-        }
-        if (tx == 0) {  // seams: sweep-start values of this row
-          pw[qb][0] = lwh;
-          pz[qb][0] = lzh;
-          ps[qb][0] = static_cast<int8_t>(hh & 0xff);
-          pw[qb][ncols + 1] = rwh;
-          pz[qb][ncols + 1] = rzh;
-          ps[qb][ncols + 1] = static_cast<int8_t>(hh >> 8);
-        }
-        __syncthreads();
-      }
+    for (int o = -1; o <= 1; ++o) {  // NW, N, NE of the row before
+      const int c = i + o;
+      const bool in = ok && c >= 0 && c < w;
+      const float zn = v.template at<float>(1, c);
+      const int sn = v.template at<int8_t>(3, c);
+      const float nv = before(o) + a.step;
+      cand = in && zn == zc && nb_ok<MODE>(sn) && nv < cand ? nv : cand;
     }
+    return cand < wr ? cand : wr;
   }
-  if (__syncthreads_or(any) && tx == 0) atomicOr(changed, 1);
+};
+
+template <int MODE>
+int launch(const float* w_in, const float* z, const int8_t* flags,
+           float* w_out, int* changed, int h, int w, float step, int reverse,
+           int* blk, int blk_len, void* stream) {
+  return rd::walk::launch<DistSweep<MODE>>({w_in, z, flags, changed, step},
+                                           w_out, h, w, reverse, blk,
+                                           blk_len, stream);
 }
 
 }  // namespace
 
+// The walk's shape into out[0..3]: tile columns, halo columns, consumer
+// threads a block, ring stages.
+extern "C" int rd_dist_shape(int* out) {
+  return rd::walk::shape<DistSweep<1>>(out);
+}
+
+// `blk`: blk_len ints of scratch on the stream's device, one a block
+// (ceil(w / TILE) always suffice), cleared here on `stream`; too few
+// return cudaErrorInvalidValue.  `changed`: one int, ORed with 1 when any
+// cell changed.
 extern "C" int rd_dist_sweep(const float* w_in, const float* z,
                              const int8_t* flags, float* w_out, int* changed,
                              int h, int w, int mode, float step, int reverse,
-                             void* stream) {
-  const dim3 grid((w + TILE - 1) / TILE);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+                             int* blk, int blk_len, void* stream) {
   switch (mode) {
     case 0:
-      dist_sweep_kernel<0><<<grid, TILE, 0, s>>>(w_in, z, flags, w_out,
-                                                 changed, h, w, step, reverse);
-      break;
+      return launch<0>(w_in, z, flags, w_out, changed, h, w, step, reverse,
+                       blk, blk_len, stream);
     case 1:
-      dist_sweep_kernel<1><<<grid, TILE, 0, s>>>(w_in, z, flags, w_out,
-                                                 changed, h, w, step, reverse);
-      break;
+      return launch<1>(w_in, z, flags, w_out, changed, h, w, step, reverse,
+                       blk, blk_len, stream);
     case 2:
-      dist_sweep_kernel<2><<<grid, TILE, 0, s>>>(w_in, z, flags, w_out,
-                                                 changed, h, w, step, reverse);
-      break;
+      return launch<2>(w_in, z, flags, w_out, changed, h, w, step, reverse,
+                       blk, blk_len, stream);
     case 3:
-      dist_sweep_kernel<3><<<grid, TILE, 0, s>>>(w_in, z, flags, w_out,
-                                                 changed, h, w, step, reverse);
-      break;
+      return launch<3>(w_in, z, flags, w_out, changed, h, w, step, reverse,
+                       blk, blk_len, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -14,8 +14,10 @@ as Gauss–Seidel distance fixpoints (:func:`ops.sweeps.dist_fixpoint_core`):
 
 A CUDA tensor sweeps with the hand-written kernel ``csrc/dist_sweep.cu``
 (one kernel covers both TPU engines: ``pallas_sweeps._dist_down_kernel`` and
-``pallas_scan._dist_scan_kernel`` relax the same fixpoint); a CPU tensor with
-its plain version :func:`ops.sweeps.dist_sweep_plain`.  The fields are exact
+``pallas_scan._dist_scan_kernel`` relax the same fixpoint; on the walk of
+``csrc/seam_walk.cuh``, narrow tiles that trade edge values); a CPU tensor
+with its plain version :func:`ops.sweeps.dist_sweep_plain`, the sweep over
+whole rows, so one sweep is bitwise the kernel's.  The fields are exact
 small integers, so the resolved directions and the mask equal the oracle's
 bit for bit, whatever the number of rotations.
 
@@ -42,13 +44,15 @@ from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import Kernel, stream_handle
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
+from richdem_tpu_torch.ops.successor import block_flags, walk_shape
 from richdem_tpu_torch.ops.sweeps import (BIG, DIST_MODES, F_DATA, F_INFLAT,
                                           F_NOFLOW, ZBIG, dist_context,
                                           dist_fixpoint_core,
                                           dist_sweep_plain)
 
-__all__ = ["DIST_SWEEP", "dist_sweep", "flat_fields", "resolve_flats_info",
-           "resolve_flats", "flat_mask_and_labels_device"]
+__all__ = ["DIST_SWEEP", "dist_sweep", "dist_shape", "flat_fields",
+           "resolve_flats_info", "resolve_flats",
+           "flat_mask_and_labels_device"]
 
 _UNREACHED = BIG / 2
 _NO_FLOW = int(topology.NO_FLOW)
@@ -56,7 +60,8 @@ _NO_FLOW = int(topology.NO_FLOW)
 _P = ctypes.c_void_p
 DIST_SWEEP = Kernel("dist_sweep", "rd_dist_sweep",
                     [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
+                     ctypes.c_int, ctypes.c_float, ctypes.c_int, _P,
+                     ctypes.c_int, _P])
 
 
 def dist_sweep(w_in, z, flags, mode, step, reverse, flag):
@@ -64,7 +69,8 @@ def dist_sweep(w_in, z, flags, mode, step, reverse, flag):
     out of place; ORs 1 into the int32 ``flag`` when any cell changed.
 
     A CUDA tensor launches ``csrc/dist_sweep.cu`` (raising if it cannot be
-    built or launched); a CPU tensor runs the plain version."""
+    built or launched, its cooperative launch included); a CPU tensor runs
+    the plain version."""
     if mode not in DIST_MODES:
         raise ValueError(f"unknown distance mode {mode!r}; expected one of "
                          f"{DIST_MODES}")
@@ -82,11 +88,18 @@ def dist_sweep(w_in, z, flags, mode, step, reverse, flag):
     out = torch.empty_like(w_in)
     if h == 0 or wd == 0:
         return out
+    blk = block_flags(wd, w_in.device)
     DIST_SWEEP.launch(w_in.data_ptr(), z.data_ptr(), flags.data_ptr(),
                       out.data_ptr(), flag.data_ptr(), h, wd,
                       DIST_MODES.index(mode), float(step), int(bool(reverse)),
-                      stream_handle(w_in.device))
+                      blk.data_ptr(), blk.numel(), stream_handle(w_in.device))
     return out
+
+
+def dist_shape():
+    """The distance kernel's walk
+    (:func:`~richdem_tpu_torch.ops.successor.walk_shape`)."""
+    return walk_shape(DIST_SWEEP, "rd_dist_shape")
 
 
 def _scalar(x, like):

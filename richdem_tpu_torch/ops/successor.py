@@ -11,14 +11,13 @@ transposed down, transposed up; the transposed sweeps read codes through
 so a rotation that changes nothing is exact convergence, and a loop that
 reaches ``max_rotations`` first raises (the reference returns silently).
 
-A CUDA tensor goes through ``csrc/resolve_sweep.cu`` (narrow tiles that
-trade edge values, so one sweep is the sweep over whole rows) and
-``csrc/strahler_sweep.cu`` (``csrc/succ_sweep.cuh``: 1024-column tiles
-whose seams read the row before at sweep-start values); a CPU tensor
-through :func:`resolve_sweep_plain` (whole rows) and
-:func:`strahler_sweep_plain` (the Strahler kernel's seams), so one sweep
-is bitwise the kernel's.  The resolve's pin rides in the sign bit of the
-code byte (:func:`pack_codes`).
+A CUDA tensor goes through ``csrc/resolve_sweep.cu`` and
+``csrc/strahler_sweep.cu``, both on the walk of ``csrc/seam_walk.cuh``
+(narrow tiles that trade edge values, so one sweep is the sweep over whole
+rows); a CPU tensor through :func:`resolve_sweep_plain` and
+:func:`strahler_sweep_plain`, the sweeps over whole rows, so one sweep is
+bitwise the kernel's.  The resolve's pin rides in the sign bit of the code
+byte (:func:`pack_codes`).
 
 :func:`successor_table` (flat successor indices) serves the plain pointer
 doubling of :mod:`richdem_tpu_torch.methods` and of
@@ -33,24 +32,24 @@ import torch
 import torch.nn.functional as F
 
 from richdem_tpu_torch import topology
-from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
+from richdem_tpu_torch._build import Kernel, stream_handle
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
                                           accumulation_rotations,
-                                          accumulation_trios, seam_columns)
+                                          accumulation_trios)
 
 __all__ = ["RESOLVE_SWEEP", "STRAHLER_SWEEP", "successor_table",
            "effective_codes", "pack_codes", "transpose_codes",
-           "resolve_sweep_plain", "resolve_sweep", "resolve_shape",
+           "resolve_sweep_plain", "block_flags", "resolve_sweep",
+           "walk_shape", "resolve_shape",
            "successor_resolve_info",
            "successor_resolve", "strahler_sweep_plain", "strahler_sweep",
-           "strahler_fixpoint_info", "strahler_fixpoint"]
+           "strahler_shape", "strahler_fixpoint_info", "strahler_fixpoint"]
 
 _P = ctypes.c_void_p
 _INT = ctypes.c_int
-_SWEEP_ARGS = [_P, _P, _P, _INT, _INT, _INT, _P]
-RESOLVE_SWEEP = Kernel("resolve_sweep", "rd_resolve_sweep",
-                       [_P, _P, _P, _INT, _INT, _INT, _P, _INT, _P])
+_SWEEP_ARGS = [_P, _P, _P, _INT, _INT, _INT, _P, _INT, _P]
+RESOLVE_SWEEP = Kernel("resolve_sweep", "rd_resolve_sweep", _SWEEP_ARGS)
 STRAHLER_SWEEP = Kernel("strahler_sweep", "rd_strahler_sweep", _SWEEP_ARGS)
 
 #: What an off-grid cell reads as in each sweep (the kernels' ``OFF``).
@@ -119,38 +118,29 @@ def _split(row):
     return row[:-2], row[1:-1], row[2:]
 
 
-def _walk(v_in, code, reverse, off, tile, rule):
-    """One sweep of the plain versions: a loop over rows in sweep order,
-    vectorised across columns, with the kernels' staging.  For each row,
-    ``rule(prev, prev_code, own, own_code, after, after_code)`` gives its
-    new values from (W + 2)-padded rows: ``prev`` the (west, centre, east)
-    views of the new values of the row before, read at their sweep-start
-    values across a tile edge of ``tile`` columns as the Strahler kernel
-    reads them (``tile`` None: whole rows, no seam); ``own`` and ``after``
-    sweep-start values.  Off-grid cells read ``off`` and code 0."""
+def _walk(v_in, code, reverse, off, rule):
+    """One sweep of the plain versions over whole rows: a loop over rows in
+    sweep order, vectorised across columns.  For each row, ``rule(prev,
+    prev_code, own, own_code, after, after_code)`` gives its new values
+    from (W + 2)-padded rows: ``prev`` the (west, centre, east) views of
+    the new values of the row before; ``own`` and ``after`` sweep-start
+    values.  Off-grid cells read ``off`` and code 0."""
     h, wd = v_in.shape
     dev = v_in.device
     out = torch.empty_like(v_in)
-    lseam, rseam = seam_columns(wd, tile or max(wd, 1), dev)
     rows = list(range(h - 1, -1, -1) if reverse else range(h))
     step = -1 if reverse else 1
     p = torch.full((wd + 2,), off, dtype=v_in.dtype, device=dev)
     pc = torch.zeros(wd + 2, dtype=code.dtype, device=dev)
     off_row = p.clone()
-    for k, r in enumerate(rows):
+    for r in rows:
         lv, lc = _pad(v_in[r], off), _pad(code[r], 0)
         rn = r + step
         if 0 <= rn < h:
             nv, nc = _pad(v_in[rn], off), _pad(code[rn], 0)
         else:
             nv, nc = off_row, torch.zeros_like(lc)
-        west, east = p[:-2], p[2:]
-        if k > 0 and lseam.numel():
-            old = _pad(v_in[rows[k - 1]], off)
-            west, east = west.clone(), east.clone()
-            west[lseam] = old[lseam]       # old[c - 1] in padded coords
-            east[rseam] = old[rseam + 2]   # old[c + 1]
-        new = rule((west, p[1:-1], east), pc, lv, lc, nv, nc)
+        new = rule(_split(p), pc, lv, lc, nv, nc)
         out[r] = new
         p, pc = _pad(new, off), lc
     return out
@@ -174,15 +164,14 @@ def resolve_sweep_plain(v_in, code, reverse):
             new = torch.where(d == dd, src[dx + 1], new)
         return torch.where(here < 0, own, new)
 
-    return _walk(v_in, code, reverse, RESOLVE_OFF, None, rule)
+    return _walk(v_in, code, reverse, RESOLVE_OFF, rule)
 
 
-def strahler_sweep_plain(o_in, code, reverse, tile=SWEEP_TILE):
+def strahler_sweep_plain(o_in, code, reverse):
     """Plain version of the Strahler-sweep kernel
-    (``csrc/strahler_sweep.cu``).  ``code``: int8 codes 0..8.  ``tile``:
-    width of the kernel's column tiles; across a tile edge the row before
-    is read at its sweep-start values, as the kernel reads it, so one
-    sweep is bitwise the kernel's."""
+    (``csrc/strahler_sweep.cu``): the sweep over whole rows, which is the
+    kernel's at every tile width (its tiles trade edge values), so one
+    sweep is bitwise the kernel's.  ``code``: int8 codes 0..8."""
     (ns, nw, ne), (os_, ow, oe) = accumulation_trios(reverse)
     zero = torch.zeros((), dtype=o_in.dtype, device=o_in.device)
 
@@ -203,7 +192,7 @@ def strahler_sweep_plain(o_in, code, reverse, tile=SWEEP_TILE):
         o = lv[1:-1]
         return torch.where(o > 0, torch.maximum(o, upd), zero).to(o.dtype)
 
-    return _walk(o_in, code, reverse, STRAHLER_OFF, tile, rule)
+    return _walk(o_in, code, reverse, STRAHLER_OFF, rule)
 
 
 def _checked(v_in, code, what):
@@ -215,24 +204,26 @@ def _checked(v_in, code, what):
                              f"tensor shaped and placed like the values")
 
 
-def _launch(kernel, v_in, code, reverse, what, flagged=False):
-    """Check and launch out of place.  ``flagged``: the kernel also takes
-    its blocks' flags, one int32 a block (a block owns at least one tile,
-    of 32 columns or more in any build), from PyTorch's allocator for each
-    call, so that no two streams share them; the kernel's entry point
-    clears them on the launch's stream."""
+def block_flags(width, device):
+    """Scratch for the blocks' flags of a sweep on the seam-exact walk
+    (``csrc/seam_walk.cuh``): one int32 a block (a block owns at least one
+    tile, of 32 columns or more in any build), from PyTorch's allocator
+    for each call, so that no two streams share them; the kernel's entry
+    point clears them on the launch's stream."""
+    return torch.empty(-(-width // 32), dtype=torch.int32, device=device)
+
+
+def _launch(kernel, v_in, code, reverse, what):
+    """Check and launch out of place, with the blocks' flags."""
     _checked(v_in, code, what)
     h, wd = v_in.shape
     out = torch.empty_like(v_in)
     if h == 0 or wd == 0:
         return out
-    extra = ()
-    if flagged:
-        flags = torch.empty(-(-wd // 32), dtype=torch.int32,
-                            device=v_in.device)
-        extra = (flags.data_ptr(), flags.numel())
+    flags = block_flags(wd, v_in.device)
     kernel.launch(v_in.data_ptr(), code.data_ptr(), out.data_ptr(), h, wd,
-                  int(bool(reverse)), *extra, stream_handle(v_in.device))
+                  int(bool(reverse)), flags.data_ptr(), flags.numel(),
+                  stream_handle(v_in.device))
     return out
 
 
@@ -243,26 +234,36 @@ def resolve_sweep(v_in, code, reverse):
     tensor runs the plain version."""
     if not v_in.is_cuda:
         return resolve_sweep_plain(v_in, code, reverse)
-    return _launch(RESOLVE_SWEEP, v_in, code, reverse, "resolve sweep",
-                   flagged=True)
+    return _launch(RESOLVE_SWEEP, v_in, code, reverse, "resolve sweep")
+
+
+def walk_shape(kernel, symbol):
+    """The walk (``csrc/seam_walk.cuh``) of a sweep kernel, from its C
+    entry ``symbol`` (the library built if needed): ``tile`` and ``halo``
+    columns, consumer ``threads`` a block, ring ``stages``."""
+    out = (ctypes.c_int * 4)()
+    kernel.entry(symbol, [_P])(out)
+    return dict(zip(("tile", "halo", "threads", "stages"), out))
 
 
 def resolve_shape():
-    """The resolve kernel's walk, from its library (built if needed):
-    ``tile`` and ``halo`` columns, consumer ``threads`` a block, ring
-    ``stages``."""
-    out = (ctypes.c_int * 4)()
-    RESOLVE_SWEEP.entry("rd_resolve_shape", [_P])(out)
-    return dict(zip(("tile", "halo", "threads", "stages"), out))
+    """The resolve kernel's walk (:func:`walk_shape`)."""
+    return walk_shape(RESOLVE_SWEEP, "rd_resolve_shape")
 
 
 def strahler_sweep(o_in, code, reverse):
     """One directional Strahler sweep (down, or up if ``reverse``), out of
     place.  A CUDA tensor launches ``csrc/strahler_sweep.cu`` (raising if
-    it cannot be built or launched); a CPU tensor runs the plain version."""
+    it cannot be built or launched, its cooperative launch included); a
+    CPU tensor runs the plain version."""
     if not o_in.is_cuda:
         return strahler_sweep_plain(o_in, code, reverse)
     return _launch(STRAHLER_SWEEP, o_in, code, reverse, "Strahler sweep")
+
+
+def strahler_shape():
+    """The Strahler kernel's walk (:func:`walk_shape`)."""
+    return walk_shape(STRAHLER_SWEEP, "rd_strahler_shape")
 
 
 def _rotations(v0, code, max_rotations, sweep):

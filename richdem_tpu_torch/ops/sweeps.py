@@ -325,49 +325,39 @@ def allowed(mode, z, zn, s, sn):
                      f"{DIST_MODES}")
 
 
-def dist_sweep_plain(w_in, z, flags, mode, step, reverse, flag,
-                     tile=SWEEP_TILE):
+def dist_sweep_plain(w_in, z, flags, mode, step, reverse, flag):
     """Plain version of the distance-sweep kernel (``csrc/dist_sweep.cu``):
-    a loop over rows in sweep order, vectorised across columns.  Each cell
+    the sweep over whole rows, which is the kernel's at every tile width
+    (its tiles trade edge values), so one sweep is bitwise the kernel's.
+    A loop over rows in sweep order, vectorised across columns: each cell
     relaxes the three cells of the row before (N, NW, NE in sweep order)
     over admissible edges.  Returns the swept raster; ORs 1 into the int32
     ``flag`` if any cell changed.
 
     ``z``: float32 elevations with nodata at :data:`ZBIG`; ``flags``: int8
-    flag bytes.  Off-grid cells are ``w = BIG``, ``z = ZBIG``, flags 0.
-    ``tile``: width of the kernel's column tiles; across a tile edge the row
-    before is read at its sweep-start values, as the kernel reads it, so
-    one sweep is bitwise the kernel's."""
+    flag bytes.  Off-grid cells are ``w = BIG``, ``z = ZBIG``, flags 0."""
     h, wd = w_in.shape
     dev = w_in.device
     out = torch.empty_like(w_in)
     step_t = torch.tensor(step, dtype=torch.float32, device=dev)
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
-    lseam, rseam = seam_columns(wd, tile, dev)
     rows = range(h - 1, -1, -1) if reverse else range(h)
     pw = torch.full((wd + 2,), BIG, dtype=torch.float32, device=dev)
     pz = torch.full((wd + 2,), ZBIG, dtype=torch.float32, device=dev)
     ps = torch.zeros(wd + 2, dtype=flags.dtype, device=dev)
-    prev_old = None
     for r in rows:
         zr, sr = z[r], flags[r]
-        left, right = pw[:-2], pw[2:]
-        if prev_old is not None and lseam.numel():
-            left, right = left.clone(), right.clone()
-            left[lseam] = prev_old[lseam - 1]
-            right[rseam] = prev_old[rseam + 1]
         cand = torch.where(allowed(mode, zr, pz[1:-1], sr, ps[1:-1]),
                            pw[1:-1] + step_t, big)
         cand = torch.minimum(cand, torch.where(
-            allowed(mode, zr, pz[:-2], sr, ps[:-2]), left + step_t, big))
+            allowed(mode, zr, pz[:-2], sr, ps[:-2]), pw[:-2] + step_t, big))
         cand = torch.minimum(cand, torch.where(
-            allowed(mode, zr, pz[2:], sr, ps[2:]), right + step_t, big))
+            allowed(mode, zr, pz[2:], sr, ps[2:]), pw[2:] + step_t, big))
         new = torch.minimum(w_in[r], cand)
         out[r] = new
         pw = F.pad(new, (1, 1), value=BIG)
         pz = F.pad(zr, (1, 1), value=ZBIG)
         ps = F.pad(sr, (1, 1), value=0)
-        prev_old = w_in[r]
     flag.bitwise_or_((out != w_in).any().to(torch.int32))
     return out
 

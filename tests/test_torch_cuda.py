@@ -3,17 +3,21 @@
 Marked ``gpu``: the kernels have no CPU mode, so without a card and
 ``nvcc`` these tests skip.  On a card, run
 ``python -m pytest tests/test_torch_cuda.py -q``.  Widths above the
-1024-column tile put seams inside the grid; a single sweep must still be
-bitwise the plain version's (which reads seams the same way).  The terrain
+1024-column tile put the fill and accumulation sweeps' seams inside the
+grid; a single sweep must still be bitwise the plain version's (which
+reads seams the same way).  The terrain
 kernel's atan attributes are held to rtol 1e-6 (the kernel and torch may
 call different atan implementations), the others bitwise.  The D∞ and
 multi-flow sweeps are bitwise at 1000×1100 in every depth mode (1, a
 window, the whole tile), down and transposed up.  Rho8 codes are bitwise
 the plain version's for the same seed (the kernel's ``tanf`` and
 ``torch.tan`` on the card agree), and the resolve and Strahler sweeps are
-bitwise, down and transposed up, and so are their fixpoints; the resolve
-kernel, built at several tile widths and halos and on grids wider than the
-card's resident blocks, equals the plain sweep over whole rows.  The scan
+bitwise, down and transposed up, and so are their fixpoints.  The
+resolve, distance and Strahler kernels (the seam-exact walk of
+``csrc/seam_walk.cuh``), built at several tile widths and halos, at widths
+from 1 to 8193 and on grids wider than the card's resident blocks, equal
+the plain sweeps over whole rows, the distance sweep's change flag
+included.  The scan
 fill sweep (a thread-block cluster a row) is bitwise its plain version
 down and up at ε = 0, ε = 1e-3 and D4, at widths that give one CTA, a
 ragged last CTA, 16 CTAs and many columns a thread, and its ε = 0
@@ -361,6 +365,107 @@ def test_resolve_sweep_wider_than_resident_blocks(dev):
             assert torch.equal(
                 successor.resolve_sweep(init, code, reverse),
                 successor.resolve_sweep_plain(init, code, reverse))
+
+
+#: (tile, halo) builds of the distance and Strahler kernels: their default,
+#: wider tiles, narrower tiles and halo, and the widest
+WALK_TILES = [(128, 64), (256, 64), (64, 32), (512, 64)]
+#: one column, a tile short of 128 and one past it, and many tiles with a
+#: ragged last one
+WALK_WIDTHS = [1, 127, 129, 8193]
+
+
+def _dist_inputs(shape, dev, seed):
+    """Terraces of equal elevation with nodata, random flag bytes and a
+    start of unreached cells and small distances: every admissibility case
+    of every mode, at any width."""
+    rng = np.random.default_rng(seed)
+    z = rng.integers(0, 3, shape).astype(np.float32)
+    z[rng.random(shape) < 0.05] = sweeps.ZBIG
+    s = rng.integers(0, 8, shape).astype(np.int8)
+    w = np.where(rng.random(shape) < 0.1, rng.integers(0, 4, shape),
+                 sweeps.BIG).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (w, z, s))
+
+
+def _dist_pair(w, z, s, mode, reverse):
+    """A distance sweep of the kernel and of its plain version, results
+    and change flags held bitwise; the kernel's result."""
+    step = 0.0 if mode == "maxd" else 1.0
+    fk = torch.zeros(1, dtype=torch.int32, device=w.device)
+    fp = torch.zeros(1, dtype=torch.int32, device=w.device)
+    before = flats.DIST_SWEEP.launches
+    wk = flats.dist_sweep(w, z, s, mode, step, reverse, fk)
+    wp = sweeps.dist_sweep_plain(w, z, s, mode, step, reverse, fp)
+    torch.cuda.synchronize()
+    assert flats.DIST_SWEEP.launches == before + 1
+    assert torch.equal(wk, wp) and torch.equal(fk, fp)
+    return wk
+
+
+def _strahler_pair(o, code, reverse):
+    before = successor.STRAHLER_SWEEP.launches
+    ok = successor.strahler_sweep(o, code, reverse)
+    torch.cuda.synchronize()
+    assert successor.STRAHLER_SWEEP.launches == before + 1
+    assert torch.equal(ok, successor.strahler_sweep_plain(o, code, reverse))
+    return ok
+
+
+def _walk_sweeps(kind, shape, dev, seed, transposed=True):
+    """A down sweep of the kernel on a raster of ``shape``, then an up
+    sweep of its result, transposed or not, each against the whole-row
+    plain sweep (in every mode for the distance)."""
+    def t(x):
+        return x.t().contiguous() if transposed else x
+
+    if kind == "dist":
+        w, z, s = _dist_inputs(shape, dev, seed)
+        for mode in sweeps.DIST_MODES:
+            wk = _dist_pair(w, z, s, mode, False)
+            _dist_pair(t(wk), t(z), t(s), mode, True)
+        return
+    rng = np.random.default_rng(seed)
+    fd = torch.from_numpy(rng.integers(-1, 9, shape).astype(np.int8)).to(dev)
+    o0 = (fd >= 0).to(torch.int32)
+    code = fd.clamp(min=0).to(torch.int8)
+    ok = _strahler_pair(o0, code, False)
+    _strahler_pair(t(ok), successor.transpose_codes(code) if transposed
+                   else code, True)
+
+
+@pytest.mark.parametrize("tile,halo", WALK_TILES)
+@pytest.mark.parametrize("kind", ["dist", "strahler"])
+def test_walk_sweeps_any_tile_width(dev, kind, tile, halo):
+    """Built at each tile width and halo, the distance and Strahler
+    kernels' sweeps, down and transposed up, equal the plain sweeps over
+    whole rows at widths 1, 127, 129 and 8193: one sweep does not depend on
+    the tile."""
+    mod, attr, macro, shape = {
+        "dist": (flats, "DIST_SWEEP", "DIST", flats.dist_shape),
+        "strahler": (successor, "STRAHLER_SWEEP", "STRAHLER",
+                     successor.strahler_shape)}[kind]
+    default = getattr(mod, attr)
+    kern = _build.Kernel(default.name, default.symbol, default.argtypes,
+                         defines={f"RD_{macro}_TILE": tile,
+                                  f"RD_{macro}_HALO": halo})
+    setattr(mod, attr, kern)
+    try:
+        assert shape()["tile"] == tile and shape()["halo"] == halo
+        for k, width in enumerate(WALK_WIDTHS):
+            _walk_sweeps(kind, (37, width), dev, k)
+    finally:
+        setattr(mod, attr, default)
+
+
+@pytest.mark.parametrize("kind", ["dist", "strahler"])
+def test_walk_sweeps_wider_than_resident_blocks(dev, kind):
+    """Rasters with more tiles than the card holds blocks at once (each
+    block then walks a run of tiles and trades edges every row): down and
+    up sweeps equal the plain sweeps over whole rows."""
+    tile = {"dist": _build.DIST_TILE, "strahler": _build.STRAHLER_TILE}[kind]
+    tiles = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    _walk_sweeps(kind, (5, tiles * tile + 77), dev, 12, transposed=False)
 
 
 def test_strahler_sweep_kernel_matches_plain(dev, succ_codes):

@@ -152,18 +152,110 @@ def test_dist_fixpoint_matches_pallas(mode, interpret):
     assert (got < w0).any()  # the fixpoint moved
 
 
-def test_dist_tile_seams_reach_the_same_fixpoint():
-    """Narrow column tiles (stale seam reads, as in the kernel) change the
-    path to the fixpoint, not the fixpoint."""
+#: the flag bits of ``flat_fields``: data, NO_FLOW, in a flat
+_DATA, _NOFLOW, _INFLAT = 1, 2, 4
+
+
+def _admissible(mode, z, zn, s, sn):
+    """The edge n → c of each mode, from the cell's (``z``, ``s``) and the
+    neighbour's (``zn``, ``sn``) elevation and flag byte: both data at one
+    elevation, and the flags the mode asks for."""
+    if not (z == zn and z < 2.9e37):
+        return False
+    both = {"member": (_DATA, _DATA),
+            "towards": (_NOFLOW | _INFLAT, _INFLAT),
+            "away": (_NOFLOW | _INFLAT, _NOFLOW | _INFLAT),
+            "maxd": (_INFLAT, _INFLAT)}[mode]
+    return (s & both[0]) == both[0] and (sn & both[1]) == both[1]
+
+
+def _dist_cell_by_cell(w, z, s, mode, step, reverse):
+    """One distance sweep over whole rows, one cell at a time in sweep
+    order: a cell takes the least of its own sweep-start value and, over
+    the admissible NW, N and NE of the row before, their new value plus
+    ``step`` (float32).  Returns the raster and whether a cell changed."""
+    h, wd = w.shape
+    out = w.copy()
+    before = 1 if reverse else -1
+    step = np.float32(step)
+    for r in (range(h - 1, -1, -1) if reverse else range(h)):
+        rp = r + before
+        for c in range(wd):
+            best = out[r, c]
+            for cc in (c - 1, c, c + 1):
+                if (0 <= rp < h and 0 <= cc < wd and _admissible(
+                        mode, z[r, c], z[rp, cc], s[r, c], s[rp, cc])):
+                    best = min(best, out[rp, cc] + step)
+            out[r, c] = best
+    return out, bool((out != w).any())
+
+
+def _cell_by_cell_sweep(w_in, z, flags, mode, step, reverse, flag):
+    """:func:`_dist_cell_by_cell` with the sweep wrappers' signature."""
+    out, changed = _dist_cell_by_cell(w_in.numpy(), z.numpy(),
+                                      flags.numpy(), mode, step, reverse)
+    flag.bitwise_or_(torch.tensor(int(changed), dtype=torch.int32))
+    return torch.from_numpy(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _holed_flats():
+    """A 40×70 ε = 0 fill with nodata holes (flat lakes beside nodata and
+    the grid's edges), its flat fields and each mode's start: the seeds
+    flat resolution gives it, ``maxd`` a ramp of -D-like values, and
+    ``member`` the outlets (nearly every flat cell here is NO_FLOW)."""
+    dem = synth.with_nodata_holes(
+        _filled(synth.depression_dem(40, 70, seed=6, dtype=np.float32)),
+        no_data=ND, seed=4, n_holes=3, max_radius=4)
+    fd = oracle.d8_flowdirs(dem.astype(np.float64), no_data=ND)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
+    ff = tflats.flat_fields(z, torch.from_numpy(fd), m)
+    big = torch.tensor(tsweeps.BIG)
+    ramp = -(torch.arange(z.numel()) % 5).view(z.shape).to(torch.float32)
+    starts = {"member": (torch.where(ff["outlet"], 0.0, big), 1.0),
+              "towards": (torch.where(ff["outlet"], 0.0, big), 1.0),
+              "away": (torch.where(ff["high_seed"], 1.0, big), 1.0),
+              "maxd": (torch.where(ff["in_flat"], ramp, big), 0.0)}
+    return ff, starts
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_row_fixpoints():
+    """Flat resolution of the ``plateau40`` case with the plain sweep and
+    with the cell-by-cell whole-row sweep."""
     dem, fd, _ = _case("plateau40")
     z, m = convert.from_numpy(dem, None, device="cpu")
     fdt = torch.from_numpy(fd)
-    want = tflats.resolve_flats_info(z, fdt, m)
-    sweep = functools.partial(tsweeps.dist_sweep_plain, tile=8)
-    got = tflats.resolve_flats_info(z, fdt, m, sweep=sweep)
-    for g, w in zip(got[:3], want[:3]):
+    return (tflats.resolve_flats_info(z, fdt, m),
+            tflats.resolve_flats_info(z, fdt, m, sweep=_cell_by_cell_sweep))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["down", "up"])
+@pytest.mark.parametrize("mode", tsweeps.DIST_MODES)
+def test_dist_sweep_is_the_whole_row_sweep(mode, reverse):
+    """One plain distance sweep, with its change flag, is the sweep over
+    whole rows read cell by cell (the kernel's tiles trade edge values, so
+    no tile width shows), on a 40×70 raster with nodata holes, flats and
+    off-grid neighbours; and flat resolution through the cell-by-cell sweep
+    reaches the plain sweep's fixpoint."""
+    ff, starts = _holed_flats()
+    w0, step = starts[mode]
+    flag = torch.zeros(1, dtype=torch.int32)
+    got = tsweeps.dist_sweep_plain(w0, ff["zed"], ff["flags"], mode, step,
+                                   reverse, flag)
+    want, changed = _dist_cell_by_cell(w0.numpy(), ff["zed"].numpy(),
+                                       ff["flags"].numpy(), mode, step,
+                                       reverse)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert changed and int(flag) == 1
+    flag.zero_()
+    tsweeps.dist_sweep_plain(got, ff["zed"], ff["flags"], mode, step,
+                             reverse, flag)
+    assert int(flag) == 0  # a sweep is idempotent
+    plain, cells = _whole_row_fixpoints()
+    for g, w in zip(plain[:3], cells[:3]):
         assert torch.equal(g, w)
-    assert got[4]
+    assert plain[3] == cells[3] and plain[4] and cells[4]
 
 
 def test_resolved_fills_drain_and_entry_points():

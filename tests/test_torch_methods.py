@@ -7,10 +7,9 @@ walks of ``tests/reference_impls.py``, and, for the sweeps themselves, the
 TPU engines ``successor_resolve_folded`` and ``strahler_folded`` in
 interpret mode with small folds and strips.  All results are integers and
 every fixpoint is unique on an acyclic code raster, so every comparison is
-exact.  One plain resolve sweep is also held against a cell-by-cell sweep
-over whole rows, and the plain Strahler sweeps are run with 32-column
-tiles, so that its seams (read at sweep-start values) fall inside the
-grid.
+exact.  One plain resolve sweep and one plain Strahler sweep are also
+held against cell-by-cell sweeps over whole rows: the kernels' tiles trade
+edge values, so no tile width shows in one sweep.
 """
 
 import functools
@@ -161,10 +160,6 @@ def test_strahler_vs_folded_interpret(folded_interpret):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def _tile32(plain):
-    return lambda v, code, rev: plain(v, code, rev, tile=32)
-
-
 def _resolve_cell_by_cell(v, code, reverse):
     """One resolve sweep over whole rows, one cell at a time in sweep order:
     a successor in the row before is read at its new value, one in the
@@ -186,13 +181,41 @@ def _resolve_cell_by_cell(v, code, reverse):
     return out
 
 
+def _strahler_cell_by_cell(o, code, reverse):
+    """One Strahler sweep over whole rows, one cell at a time in sweep
+    order: the inflows of a cell are the neighbours whose code points at
+    it, read at their new orders in the row before and at their
+    sweep-start orders in the cell's own row and the row after; with m
+    the largest inflow order and k the inflows at m, the update is 1 (no
+    inflow), m (k = 1) or m + 1 (k ≥ 2), and the new order max(old,
+    update), 0 where old is 0."""
+    h, w = o.shape
+    out = o.copy()
+    before = 1 if reverse else -1
+    for r in (range(h - 1, -1, -1) if reverse else range(h)):
+        for c in range(w):
+            ins = []
+            for rr in (r - 1, r, r + 1):
+                for cc in (c - 1, c, c + 1):
+                    if (rr, cc) == (r, c) or not (0 <= rr < h
+                                                  and 0 <= cc < w):
+                        continue
+                    d = int(code[rr, cc])
+                    if (d > 0 and rr + int(topology.DY[d]) == r
+                            and cc + int(topology.DX[d]) == c):
+                        ins.append((out if rr - r == before else o)[rr, cc])
+            m = max(ins, default=0)
+            k = sum(1 for x in ins if x == m and m > 0)
+            upd = 1 if m == 0 else (m + 1 if k >= 2 else m)
+            out[r, c] = max(o[r, c], upd) if o[r, c] > 0 else 0
+    return out
+
+
 def test_plain_sweeps_cross_seams():
     """A 96×200 raster with nodata holes and cells that point off the grid.
-    One resolve sweep, down and up, is the sweep over whole rows read cell
-    by cell (the resolve kernel's tiles trade edge values, so no tile
-    width shows).  The Strahler sweep with 32-column tiles (six seams a
-    row, each read at sweep-start values) differs from the one-tile sweep
-    after one sweep; neither fixpoint does."""
+    One resolve sweep and one Strahler sweep, down and up, are the sweeps
+    over whole rows read cell by cell (the kernels' tiles trade edge
+    values, so no tile width shows); the fixpoints are the references'."""
     fd = _codes((96, 200), 3, True)
     t = torch.from_numpy(fd)
     fd_eff = S.effective_codes(t)
@@ -215,12 +238,14 @@ def test_plain_sweeps_cross_seams():
                                   upslope_numpy(seeds.numpy(), fd))
     o0 = (t >= 0).to(torch.int32)
     sc = t.clamp(min=0).to(torch.int8)
-    assert not torch.equal(S.strahler_sweep_plain(o0, sc, False, tile=1024),
-                           S.strahler_sweep_plain(o0, sc, False, tile=32))
-    order, r32, done = S.strahler_fixpoint_info(
-        t, sweep=_tile32(S.strahler_sweep_plain))
-    _, r1, _ = S.strahler_fixpoint_info(t)
-    assert done and r32 >= r1
+    for reverse in (False, True):
+        got = S.strahler_sweep_plain(o0, sc, reverse)
+        np.testing.assert_array_equal(
+            got.numpy(),
+            _strahler_cell_by_cell(o0.numpy(), sc.numpy(), reverse))
+        assert (got > 1).any()
+    order, _, done = S.strahler_fixpoint_info(t)
+    assert done
     np.testing.assert_array_equal(order.numpy(), strahler_numpy(fd))
 
 

@@ -8,9 +8,9 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
 ``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths``,
-``scan_widths``, ``sweep_rows``, ``flow_tiles`` and ``resolve_tiles``
-(all when none is named).  Paths, at 10240² on a Perlin DEM (seed 0),
-each after one warm-up step:
+``scan_widths``, ``sweep_rows``, ``flow_tiles``, ``walk_tiles`` and
+``resolve_tiles`` (all when none is named).  Paths, at 10240² on a Perlin
+DEM (seed 0), each after one warm-up step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
   config 3, ``bench.py``'s default);
@@ -46,15 +46,18 @@ width and build with the microseconds per row step, the launch shape
 (CTAs, columns and threads a CTA, columns a thread), the registers and
 the spills.  ``sweep_rows`` runs no trace either: it
 prints ``ptxas``'s registers and spill bytes of the entries of the fill,
-accumulation, D8, multi-flow, D∞, resolve and scan kernels, then times one
-call of each on 10240-row Perlin rasters of widths 1024, 4096 and 10240
-with CUDA events (one warm-up call, then the mean of three): a fill sweep
-(ε = 0, from the fill's start), an accumulation sweep (unit weights, D8
-codes of the DEM), D8 codes, a resolve sweep (watershed start on those
-codes), a scan fill sweep (ε = 1e-3), and a multi-flow (Quinn planes of
-the DEM) and a D∞ sweep (its packed field) at in-row depths 1 and 8, from
-unit accumulation.  It prints one JSON line per kernel, depth and width with
-the milliseconds per call and the microseconds per row step.
+accumulation, D8, multi-flow, D∞, resolve, distance, Strahler and scan
+kernels, then times one call of each on 10240-row Perlin rasters of widths
+1024, 4096 and 10240 with CUDA events (one warm-up call, then the mean of
+three): a fill sweep (ε = 0, from the fill's start), an accumulation sweep
+(unit weights, D8 codes of the DEM), D8 codes, a resolve sweep (watershed
+start on those codes), a Strahler sweep (from order 1 on those codes), a
+distance sweep (mode ``towards`` from the outlets, on the flat fields of
+the DEM's ε = 0 fill), a scan fill sweep (ε = 1e-3), and a multi-flow
+(Quinn planes of the DEM) and a D∞ sweep (its packed field) at in-row
+depths 1 and 8, from unit accumulation.  It prints one JSON line per
+kernel, depth and width with the milliseconds per call and the
+microseconds per row step.
 ``flow_tiles`` runs no trace either: it builds the multi-flow and D∞
 sweeps at tile widths 128, 256 and 512, each with a 32- and a 64-column
 halo (``RD_FLOW_TILE``, ``RD_FLOW_HALO``; the port's own are
@@ -63,12 +66,21 @@ sweep over whole rows on a 256×2100 raster at depths 1 and 8, then times
 one sweep of each at 10240² (Perlin seed 0, unit accumulation) with CUDA
 events and prints one JSON line per kernel, tile, halo and depth with the
 microseconds per row step, the registers and the spills.
-``resolve_tiles`` runs no trace either: it builds the resolve sweep at
-the tile widths and halos of ``RESOLVE_TILES`` (``RD_RESOLVE_TILE``,
-``RD_RESOLVE_HALO``; the port's own are ``_build.RESOLVE_TILE`` and
-``RESOLVE_HALO``), holds each against the plain sweep over whole rows on
-a 256×2100 raster, and times one sweep of each at 10240² on the flat-
-resolved codes of the main path's ε = 0 fill (watershed start).
+``walk_tiles`` runs no trace either: it builds the three sweeps of the
+seam-exact walk (``csrc/seam_walk.cuh``: resolve, distance, Strahler) at
+the tile widths and halos of ``WALK_TILES`` (``RD_RESOLVE_TILE`` and
+``RD_RESOLVE_HALO``, ``RD_DIST_*``, ``RD_STRAHLER_*``; the port's own are
+``_build.RESOLVE_TILE`` and the like), holds each against the plain sweep
+over whole rows on a 256×2100 raster, and times one sweep of each at
+10240² on the main path's ε = 0 fill of the Perlin DEM: the resolve
+(watershed start) and Strahler (order 1) sweeps on its flat-resolved
+codes, the distance sweep (``towards`` from the outlets) on its flat
+fields; one JSON line per kernel, tile and halo with the microseconds per
+row step, the registers and the spills, then one for a profiling build of
+each at the port's tiles (``RD_WALK_PROFILE``: the cycles of each part of
+a row step, ``WALK_PARTS``, by block, on the consumer thread of the
+tile's first column).
+``resolve_tiles`` does the same for the resolve sweep alone.
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
@@ -96,18 +108,18 @@ MAIN = 10240
 #: CUDA function name (as the trace shows it) → kernel of the port
 PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
                 "accum_sweep_kernel": "accum_sweep",
-                "dist_sweep_kernel": "dist_sweep",
+                # seam_walk_kernel, instantiated per rule
+                "DistSweep": "dist_sweep",
                 "terrain_kernel": "terrain",
                 # flow_sweep_kernel, instantiated per field
                 "DinfField": "dinf_sweep", "MfdField": "mfd_sweep",
                 "rho8_kernel": "rho8",
-                "resolve_sweep_kernel": "resolve_sweep",
-                # succ_sweep_kernel, instantiated per rule
+                "ResolveSweep": "resolve_sweep",
                 "Strahler": "strahler_sweep",
                 "fill_scan_kernel": "fill_scan"}
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
          "rho8", "api", "depths", "scan_widths", "sweep_rows", "flow_tiles",
-         "resolve_tiles")
+         "walk_tiles", "resolve_tiles")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
 SCAN_ROWS = 2048
@@ -120,9 +132,20 @@ SCAN_BUILDS = ((16, 128), (16, 512), (8, 256), (4, 256))
 SCAN_PARTS = ("set-up", "maps", "warp scans and CTA barrier",
               "scan over the warps and sends", "aggregates' wait",
               "carries and columns", "ring wait and CTA barrier")
-#: (tile width, halo) of each resolve-sweep build that ``resolve_tiles``
-#: times
-RESOLVE_TILES = ((64, 32), (128, 32), (128, 64), (256, 64), (512, 64))
+#: (tile width, halo) of each build of the walk's sweeps that
+#: ``walk_tiles`` times
+WALK_TILES = ((64, 32), (128, 32), (128, 64), (256, 64), (512, 64))
+#: the parts of a row step of the walk that its profiling build counts
+#: (``RD_WALK_PROFILE``)
+WALK_PARTS = ("neighbours' flags", "exchange reads", "stage wait",
+              "rule and stores", "barrier", "rest of the loop")
+#: blocks whose parts the profiling build keeps
+WALK_PROFILE_BLOCKS = 1024
+#: the walk's sweeps: (module, kernel attribute, macro prefix)
+WALK_KERNELS = {"resolve_sweep": ("successor", "RESOLVE_SWEEP", "RESOLVE"),
+                "dist_sweep": ("flats", "DIST_SWEEP", "DIST"),
+                "strahler_sweep": ("successor", "STRAHLER_SWEEP",
+                                   "STRAHLER")}
 SWEEP_ROWS = 10240
 SWEEP_WIDTHS = (1024, 4096, 10240)
 #: (tile width, halo) of each flow-sweep build that ``flow_tiles`` times
@@ -294,61 +317,138 @@ def scan_widths(dev, card):
                 fill.FILL_SCAN = default
 
 
-def resolve_tiles(dev, card):
-    """The resolve sweep built at each tile width and halo: registers,
-    spills, a check against the plain sweep over whole rows, and the
-    microseconds per row step at 10240² on the codes of a Perlin DEM."""
+def _walk_calls(z):
+    """Per sweep of the walk, ``(kernel call, plain call)`` of one sweep
+    down, each taking a 2-D slice of the rows and columns it sweeps: the
+    resolve (watershed start) and Strahler (order 1) sweeps on the flat-
+    resolved D8 codes of ``z``'s ε = 0 fill, the distance sweep
+    (``towards`` from the outlets) on that fill's flat fields."""
     import torch
     from richdem_tpu_torch import resolve_flats
-    from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch.ops import fill, flowdirs, successor
+    from richdem_tpu_torch.ops import fill, flats, flowdirs, successor, sweeps
 
-    z = tsynth.perlin_dem(SWEEP_ROWS, MAIN, seed=0, device=dev)
+    nd = torch.zeros_like(z, dtype=torch.bool)
     filled, _, _ = fill.fill_depressions_info(z, eps=0.0, max_iters=256)
-    fd = resolve_flats(filled, flowdirs.d8_core(filled, torch.zeros_like(
-        z, dtype=torch.bool)))
+    fd0 = flowdirs.d8_core(filled, nd)
+    fd = resolve_flats(filled, fd0)
     fd_eff = successor.effective_codes(fd)
     pinned = fd_eff == 0
     idx = torch.arange(fd.numel(), dtype=torch.int32,
-                       device=dev).view(fd.shape)
+                       device=z.device).view(fd.shape)
     init = torch.where(pinned, idx, -1)
     code = successor.pack_codes(fd_eff, pinned)
+    o0 = (fd >= 0).to(torch.int32)
+    sc = fd.clamp(min=0).to(torch.int8)
+    ff = flats.flat_fields(filled, fd0, nd)
+    w0 = torch.where(ff["outlet"], 0.0, torch.tensor(sweeps.BIG,
+                                                     device=z.device))
+    zed, fl = ff["zed"], ff["flags"]
+    flag = torch.zeros(1, dtype=torch.int32, device=z.device)
+
+    def cut(x, sl):
+        return x[sl].contiguous()
+
+    return {
+        "resolve_sweep": (
+            lambda sl: successor.resolve_sweep(cut(init, sl), cut(code, sl),
+                                               False),
+            lambda sl: successor.resolve_sweep_plain(cut(init, sl),
+                                                     cut(code, sl), False)),
+        "strahler_sweep": (
+            lambda sl: successor.strahler_sweep(cut(o0, sl), cut(sc, sl),
+                                                False),
+            lambda sl: successor.strahler_sweep_plain(cut(o0, sl),
+                                                      cut(sc, sl), False)),
+        "dist_sweep": (
+            lambda sl: flats.dist_sweep(cut(w0, sl), cut(zed, sl),
+                                        cut(fl, sl), "towards", 1.0, False,
+                                        flag),
+            lambda sl: sweeps.dist_sweep_plain(cut(w0, sl), cut(zed, sl),
+                                               cut(fl, sl), "towards", 1.0,
+                                               False, flag))}
+
+
+def walk_tiles(dev, card, names=tuple(WALK_KERNELS)):
+    """The sweeps of the seam-exact walk built at each tile width and
+    halo: registers, spills, a check against the plain sweep over whole
+    rows, and the microseconds per row step at 10240² on the main path's
+    ε = 0 fill of a Perlin DEM."""
+    import ctypes
+    import importlib
+
+    import torch
+    from richdem_tpu_torch import _build
+    from richdem_tpu_torch import synth as tsynth
+
+    z = tsynth.perlin_dem(SWEEP_ROWS, MAIN, seed=0, device=dev)
+    calls = _walk_calls(z)
     small = (slice(0, 256), slice(0, 2100))
-    i_s, c_s = init[small].contiguous(), code[small].contiguous()
-    ref = successor.resolve_sweep_plain(i_s, c_s, False)
-    default = successor.RESOLVE_SWEEP
-    for tile, halo in RESOLVE_TILES:
-        kern = _variant(default, {"RD_RESOLVE_TILE": tile,
-                                  "RD_RESOLVE_HALO": halo})
-        successor.RESOLVE_SWEEP = kern
+    whole = (slice(None), slice(None))
+    for name in names:
+        modname, attr, macro = WALK_KERNELS[name]
+        mod = importlib.import_module(f"richdem_tpu_torch.ops.{modname}")
+        kern_call, plain_call = calls[name]
+        ref = plain_call(small)
+        default = getattr(mod, attr)
+        for tile, halo in WALK_TILES:
+            kern = _variant(default, {f"RD_{macro}_TILE": tile,
+                                      f"RD_{macro}_HALO": halo})
+            setattr(mod, attr, kern)
+            try:
+                if not torch.equal(kern_call(small), ref):
+                    raise AssertionError(f"{name} at tile {tile}, halo "
+                                         f"{halo}: differs from the "
+                                         "whole-row sweep")
+                ms = _events_ms(lambda: kern_call(whole))
+                print(json.dumps({"walk_tiles": name, "tile": tile,
+                                  "halo": halo, "rows": SWEEP_ROWS,
+                                  "width": MAIN, "ms": ms,
+                                  "us_per_row": 1e3 * ms / SWEEP_ROWS,
+                                  "resources": kern.resources(),
+                                  "card": card}), flush=True)
+            finally:
+                setattr(mod, attr, default)
+        kern = _variant(default, {"RD_WALK_PROFILE": 1})
+        setattr(mod, attr, kern)
         try:
-            if not torch.equal(successor.resolve_sweep(i_s, c_s, False), ref):
-                raise AssertionError(f"resolve at tile {tile}, halo {halo}: "
-                                     "differs from the whole-row sweep")
-            ms = _events_ms(lambda: successor.resolve_sweep(init, code,
-                                                            False))
-            print(json.dumps({"resolve_tiles": tile, "halo": halo,
+            if not torch.equal(kern_call(small), ref):
+                raise AssertionError(f"{name}'s profiling build differs "
+                                     "from the whole-row sweep")
+            ms = _events_ms(lambda: kern_call(whole))
+            nparts = len(WALK_PARTS)
+            cycles = (ctypes.c_ulonglong * (WALK_PROFILE_BLOCKS * nparts))()
+            rc = kern.entry("rd_walk_profile", [ctypes.c_void_p])(cycles)
+            if rc != 0:
+                raise RuntimeError(f"rd_walk_profile: cudaError {rc}")
+            blocks = -(-MAIN // getattr(_build, f"{macro}_TILE"))
+            per_block = [[cycles[b * nparts + p] / SWEEP_ROWS
+                          for p in range(nparts)] for b in range(blocks)]
+            print(json.dumps({"walk_tiles": name, "build": "profiling",
                               "rows": SWEEP_ROWS, "width": MAIN, "ms": ms,
                               "us_per_row": 1e3 * ms / SWEEP_ROWS,
-                              "resources": kern.resources(), "card": card}),
-                  flush=True)
+                              "parts": WALK_PARTS,
+                              "cycles_per_row_by_block": per_block,
+                              "card": card}), flush=True)
         finally:
-            successor.RESOLVE_SWEEP = default
+            setattr(mod, attr, default)
 
 
 def sweep_rows(dev, card):
     """Registers, spills and microseconds per row step of the fill,
-    accumulation, multi-flow and D∞ sweeps, and D8's time per call."""
+    accumulation, multi-flow, D∞, resolve, Strahler, distance and scan
+    sweeps, and D8's time per call."""
     import torch
     from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch.ops import (accum, dinf, fill, flowdirs, mfd,
-                                       successor, sweeps)
+    from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs,
+                                       mfd, successor, sweeps)
 
     for name, kern in (("fill_sweep", fill.FILL_SWEEP),
                        ("accum_sweep", accum.ACCUM_SWEEP),
                        ("d8", flowdirs.D8), ("mfd_sweep", mfd.MFD_SWEEP),
                        ("dinf_sweep", dinf.DINF_SWEEP),
                        ("resolve_sweep", successor.RESOLVE_SWEEP),
+                       ("dist_sweep", flats.DIST_SWEEP),
+                       ("strahler_sweep", successor.STRAHLER_SWEEP),
                        ("fill_scan", fill.FILL_SCAN)):
         kern.function()
         print(json.dumps({"ptxas": name, "entries": kern.resources(),
@@ -371,6 +471,14 @@ def sweep_rows(dev, card):
                            device=dev).view(fd.shape)
         init = torch.where(pinned, idx, -1)
         code_r = successor.pack_codes(fd_eff, pinned)
+        o0 = (fd >= 0).to(torch.int32)
+        sc = fd.clamp(min=0).to(torch.int8)
+        filled0, _, _ = fill.fill_depressions_info(z, eps=0.0, max_iters=256)
+        ff = flats.flat_fields(filled0, flowdirs.d8_core(filled0, nd), nd)
+        wt0 = torch.where(ff["outlet"], 0.0, torch.tensor(sweeps.BIG,
+                                                          device=dev))
+        zed, fl = ff["zed"], ff["flags"]
+        del filled0
         calls = [("fill_sweep", None,
                   lambda: fill.fill_sweep(w0, z, 0.0, 0.0, False, flag)),
                  ("accum_sweep", None,
@@ -378,6 +486,11 @@ def sweep_rows(dev, card):
                  ("d8", None, lambda: flowdirs.d8_core(z, nd)),
                  ("resolve_sweep", None,
                   lambda: successor.resolve_sweep(init, code_r, False)),
+                 ("strahler_sweep", None,
+                  lambda: successor.strahler_sweep(o0, sc, False)),
+                 ("dist_sweep", None,
+                  lambda: flats.dist_sweep(wt0, zed, fl, "towards", 1.0,
+                                           False, flag)),
                  ("fill_scan", None,
                   lambda: fill.fill_scan_sweep(w0, z, 1e-3, 1e-3, False,
                                                flag))]
@@ -522,8 +635,9 @@ def main():
         if name == "flow_tiles":
             flow_tiles(dev, card)
             continue
-        if name == "resolve_tiles":
-            resolve_tiles(dev, card)
+        if name in ("walk_tiles", "resolve_tiles"):
+            walk_tiles(dev, card, ("resolve_sweep",) if name ==
+                       "resolve_tiles" else tuple(WALK_KERNELS))
             continue
         res = trace(name, fns[name], out_dir)
         res["card"] = card
