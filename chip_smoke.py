@@ -12,7 +12,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 2. build — compiles the eleven kernels from ``richdem_tpu_torch/csrc`` and
    the port's native engine, all at once (or loads them when the libraries
    are newer than the sources), and reads each kernel's registers and
-   spills from ``ptxas``'s report;
+   spills from ``ptxas``'s report and the launch shapes of the scan
+   sweep, the walk's sweeps and the stencil kernels' tile;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card, on a ragged 1000×1100 Perlin DEM with nodata holes (the distance
    sweep in every mode, the terrain kernel for all 8 attributes, the D∞ and
@@ -83,7 +84,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    of each timed beside its bound, with each sweep's time per row step and
    each kernel's registers and spill bytes a thread from the build's
    ``-Xptxas -v`` report, the scan sweep's cluster and the tiles of the
-   distance, resolve and Strahler sweeps; pointer doubling's watershed
+   distance, resolve and Strahler sweeps; every terrain attribute, and
+   Rho4 beside Rho8, timed beside its bound; pointer doubling's watershed
    labels timed on the d8_methods codes beside the resolve sweep (another
    engine, a reference point).
 
@@ -131,13 +133,20 @@ ENGINES_ATOL = 1e-3
 NATIVE_EPS_ATOL = 5e-2
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-#: bandwidth and float32 outside the tensor cores (integer operations are
-#: counted against the same rate).
+#: bandwidth and float32 outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
+#: Instruction rates of one H100 SXM (the GH100 white paper; CUDA's
+#: arithmetic throughput table for compute capability 9.0): 132 SMs at
+#: 1.98 GHz, each a clock 128 float32 and 64 int32 instructions and 16
+#: conversions (I2F).
+SMS = 132
+SM_HZ = 1.98e9
+ISSUE_PER_CLOCK = {"fp32": 128, "int32": 64, "xu": 16}
 
-#: Per cell of one call, as (bytes, float operations): each input read
-#: once and each output written once; the arithmetic the function does.
+#: Per cell of one call, as (bytes, operations): each input read once and
+#: each output written once; the arithmetic the function does, as float
+#: operations, or as operations by class where most of it is not float.
 #:   fill_sweep  W, Z in, W out (4+4+4); 3 adds, 3 min, 1 max
 #:   d8          z, mask in, code out (4+1+1); 8 × (sub, div, compare)
 #:   accum_sweep acc, w, code in, acc out (4+4+1+4); up to 9 adds
@@ -147,10 +156,17 @@ F32_FLOPS_S = 67e12
 #:               8 taps (compare, select), 8 multiplies, 8 adds
 #:   mfd_sweep   acc, w, 8 planes in, acc out (4+4+32+4); 8 multiplies and
 #:               8 adds, 3 doubling steps of 2 chains (3 each), closure 6
-#:   rho8        z, mask in, code out (4+1+1); Philox4x32-10 (10 rounds of
-#:               2 multiplies, 2 high multiplies, 4 xors, 2 key adds),
-#:               u and the distance 6, tanf about 20, 8 × (sub, div,
-#:               compare, select): 100 + 26 + 32
+#:   rho8        z, mask in, code out (4+1+1); int32: the counter's two
+#:               words from the flat index 2, Philox4x32-10 37 (18 wide
+#:               multiplies and 19 three-input xors: round 1 multiplies
+#:               one word, as the counter's others are 0, and the last
+#:               round forms only the word drawn), the 24 bits 1; one
+#:               conversion to float; fp32: u and u·π/4 2, tanf 13 (its
+#:               reduction 4, its polynomial 9), the diagonal distance 2,
+#:               8 × (sub, div, compare) 24.  The int32 count binds: 40
+#:               at 64 a clock, 0.2508 ms at 10240² (158 operations at 67
+#:               TFLOP/s, the count of the first port, gave 0.2473)
+#:   rho8_d4     as d8 with 4 directions: 4 × (sub, div, compare)
 #:   resolve_sweep      value, code in, value out (4+1+4); pin test, code
 #:               decode, one select
 #:   strahler_sweep     order, code in, order out (4+1+4); 8 compares and
@@ -161,11 +177,36 @@ F32_FLOPS_S = 67e12
 #:               (4 + 2 each way, the scans' share of their steps about 8
 #:               each way), untilting 2, the guard and the choice 7: about
 #:               100 operations
-#: Bytes bound all but rho8 on an H100; operations bound rho8.
+#: Bytes bound all but rho8 on an H100 (under either count of their
+#: operations); its int32 operations bound rho8.
 COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
         "dist_sweep": (13, 9), "terrain": (9, 40), "dinf_sweep": (16, 36),
-        "mfd_sweep": (44, 40), "rho8": (6, 158), "resolve_sweep": (9, 4),
+        "mfd_sweep": (44, 40),
+        "rho8": (6, {"int32": 40, "xu": 1, "fp32": 41}),
+        "rho8_d4": (6, 12), "resolve_sweep": (9, 4),
         "strahler_sweep": (9, 52), "fill_scan": (12, 100)}
+
+
+def op_seconds(name, n):
+    """The least time the card could take for the operations of ``n``
+    cells of ``name`` (COST): float operations over the float32 peak, or
+    operations by class over their instruction rates."""
+    ops = COST[name][1]
+    if isinstance(ops, dict):
+        clocks = max(k / ISSUE_PER_CLOCK[c] for c, k in ops.items())
+        return clocks * n / (SMS * SM_HZ)
+    return ops * n / F32_FLOPS_S
+
+
+def bound_ms(name, n):
+    """(bound in ms, what bounds it) of one call of ``name`` on ``n``
+    cells: the larger of its bytes over the memory rate and its
+    operations (``op_seconds``)."""
+    by_bytes = COST[name][0] * n / HBM_BYTES_S
+    by_ops = op_seconds(name, n)
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
 
 #: The TPU kernel each CUDA kernel replaces (file:line of the body), and
 #: the other TPU kernels it covers where there are any (a list where there
@@ -201,10 +242,12 @@ PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
 #: (``csrc/flow_sweep.cuh``), the scan fill sweep over a thread-block
 #: cluster, and the seam-exact narrow tiles of the resolve sweep, then of
 #: the distance and Strahler sweeps on the same walk
-#: (``csrc/seam_walk.cuh``).
+#: (``csrc/seam_walk.cuh``), then terrain and Rho8 on the D8 tile, lifted
+#: into ``csrc/stencil_tile.cuh``.
 REDESIGNED = {"fill_sweep": 6, "accum_sweep": 6, "d8": 7, "mfd_sweep": 7,
               "dinf_sweep": 7, "fill_scan": 8, "resolve_sweep": 8,
-              "dist_sweep": 9, "strahler_sweep": 9}
+              "dist_sweep": 9, "strahler_sweep": 9, "terrain": 10,
+              "rho8": 10}
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
 #: Depths at which those sweeps are held against the plain sweep over whole
@@ -619,16 +662,18 @@ def phase_build(kernels):
         for job in jobs:
             job.result()
     RESOURCES.update({k.name: kernel_resources(k) for k in kernels})
-    from richdem_tpu_torch.ops import fill, flats, successor
+    from richdem_tpu_torch.ops import fill, flats, flowdirs, successor
     SHAPES["fill_scan"] = fill.fill_scan_shape(MAIN)
     SHAPES["resolve_sweep"] = successor.resolve_shape()
     SHAPES["dist_sweep"] = flats.dist_shape()
     SHAPES["strahler_sweep"] = successor.strahler_shape()
+    for name in ("d8", "rho8", "terrain"):
+        SHAPES[name] = flowdirs.stencil_tile_shape()
     log("build", f"scan fill sweep at {MAIN} columns: {SHAPES['fill_scan']}"
         f", {RESOURCES['fill_scan']}; "
         + "; ".join(f"{name}: {SHAPES[name]}, {RESOURCES[name]}"
                     for name in ("resolve_sweep", "dist_sweep",
-                                 "strahler_sweep")))
+                                 "strahler_sweep", "d8", "rho8", "terrain")))
     log("build", f"{len(kernels)} kernels and the native engine loaded in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k.name} " + ("cached" if k.build_seconds is None
@@ -1297,9 +1342,9 @@ def kernel_resources(kernel):
 #: Per kernel, its registers and spills (``kernel_resources``), filled in
 #: by the build phase.
 RESOURCES = {}
-#: The launch shapes of the scan sweep (its cluster at MAIN columns) and
-#: of the sweeps on the seam-exact walk (their tiles), filled in by the
-#: build phase.
+#: The launch shapes of the scan sweep (its cluster at MAIN columns), of
+#: the sweeps on the seam-exact walk (their tiles) and of the stencil
+#: kernels (their shared-memory tile), filled in by the build phase.
 SHAPES = {}
 
 
@@ -1308,15 +1353,11 @@ def time_kernel(name, kern, plain, card, times, what):
     version and the bound of its work at MAIN², from ``COST``; logs the
     kernel's registers and spills and, for a sweep, its time per row step
     (MAIN rows); returns the plain version's result."""
-    n = MAIN * MAIN
     kern()
     ms = cuda_ms(kern, reps=5)
     out = {}
     plain_ms = cuda_ms(lambda: out.setdefault("plain", plain()), reps=1)
-    by_bytes = COST[name][0] * n / HBM_BYTES_S
-    by_ops = COST[name][1] * n / F32_FLOPS_S
-    bound = max(by_bytes, by_ops) * 1e3
-    bound_by = "bytes" if by_bytes >= by_ops else "operations"
+    bound, bound_by = bound_ms(name, MAIN * MAIN)
     times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=bound_by)
     res = RESOURCES[name]
@@ -1328,6 +1369,21 @@ def time_kernel(name, kern, plain, card, times, what):
         f"registers, {res['spill_stores']} B spill stores and "
         f"{res['spill_loads']} B spill loads a thread; on [{card}]")
     return out["plain"]
+
+
+def time_variants(name, calls, card, what):
+    """One call of each variant of kernel ``name`` (``{variant: (call,
+    COST key)}``) timed after a warm-up call, beside the bound of its
+    work at MAIN²; logged, not recorded."""
+    parts = []
+    for variant, (call, cost) in calls.items():
+        call()
+        ms = cuda_ms(call, reps=5)
+        bound, bound_by = bound_ms(cost, MAIN * MAIN)
+        parts.append(f"{variant} {ms:.3f} ms ({100 * bound / ms:.1f} % of "
+                     f"{bound:.4f} ms, {bound_by})")
+    log("timing", f"{name} at {what}, kernel per call: " + "; ".join(parts)
+        + f"; on [{card}]")
 
 
 def phase_timing(dev, card, out, z, err, times):
@@ -1406,6 +1462,10 @@ def phase_timing(dev, card, out, z, err, times):
                                 ("dist_sweep", dist_calls),
                                 ("terrain", terrain_calls)):
         time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
+    time_variants("terrain", {
+        a: (lambda a=a: terrain.terrain_fused(z, mask, 1.0, 1.0, a),
+            "terrain") for a in terrain.TERRAIN_ATTRIBUTES}, card,
+        f"{MAIN}x{MAIN}, every attribute")
 
 
 def phase_flow_timing(dev, card, c4, err, times):
@@ -1653,6 +1713,10 @@ def phase_methods_timing(dev, card, dm, r8, err, times):
         f"the rho8 path's surface: bitwise")
     for name, (kern, plain) in calls.items():
         time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
+    time_variants("rho8", {
+        "Rho8": (calls["rho8"][0], "rho8"),
+        "Rho4": (lambda: flowdirs.rho8_core(filled, nd, 1.0, 0, "D4"),
+                 "rho8_d4")}, card, f"{MAIN}x{MAIN}, the rho8 path's surface")
     # a reference point beside the resolve sweep, not a yardstick: pointer
     # doubling is another engine, and a fixpoint, not one sweep
     from richdem_tpu_torch import methods

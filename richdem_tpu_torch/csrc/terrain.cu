@@ -25,94 +25,124 @@
 //
 // What bounds it on an H100: device memory.  Each cell needs its z (4 B)
 // and nodata byte once and writes 4 B, 9 B a cell; the arithmetic is a few
-// dozen flops.  This first version reads the nine window values and nine
-// mask bytes through L1 per thread (blocks of 32 x 8 cells, neighbouring
-// threads on neighbouring columns), so it is bound by load issue before
-// bandwidth; a shared-memory tile with halos is the next step.
+// dozen operations (a few more for the curvatures).  What the design does
+// about it: the shared-memory tile of stencil_tile.cuh (32 rows by 128
+// columns, 4x4 cells a thread, 16-byte loads of z, 4-byte loads of the
+// mask and one 16-byte store of a row's 4 values where rows start
+// aligned), so each value and mask byte is read from device memory once,
+// not nine times; z * zscale is computed once a cell, at staging, where a
+// nodata or off-grid cell stages as NaN, exactly the fold of the plain
+// _window (a NaN neighbour reads the centre); the centre's own nodata is
+// read from the mask (NaN out).  The uniform divisors 8L, L*L, (4L)*L and
+// 2L, grouped as terrain_core groups them, take stencil_tile.cuh's fast
+// division (their reciprocals hoisted) where the block's scaled values are
+// 0 or 2^-50 <= |v| <= 2^77: then every dividend the attributes form (sums
+// and differences of at most eight window values, weights 1, 2 and 1/2)
+// is 0 or within [2^-74, 2^80], where the divisors lie in [2^-20, 2^20];
+// other blocks divide with `/`.  The halving in D and E is a
+// multiplication by 0.5, exact as the division by 2; the division by
+// max(G^2 + H^2, 1e-30) of the planform and profile curvatures differs
+// from cell to cell and stays `/`.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "stencil_tile.cuh"
 
 namespace {
 
-constexpr int BX = 32, BY = 8;
+using rd::tile::quotient;
+using rd::tile::refined_rcp;
+
 constexpr float RAD2DEG = 57.295779513082320876798154814105f;
 
 template <int ATTRIB>
-__global__ void __launch_bounds__(BX * BY)
-terrain_kernel(const float* __restrict__ z, const uint8_t* __restrict__ nd,
-               float* __restrict__ out, int h, int w, float zscale,
-               float L) {
-  const int col = blockIdx.x * BX + threadIdx.x;
-  const int row = blockIdx.y * BY + threadIdx.y;
-  if (row >= h || col >= w) return;
-  const size_t at = static_cast<size_t>(row) * w + col;
-  if (nd[at]) {
-    out[at] = nanf("");
-    return;
-  }
-  const float e = z[at] * zscale;
-  auto nb = [&](int dr, int dc) -> float {
-    const int r = row + dr, cc = col + dc;
-    if (r < 0 || r >= h || cc < 0 || cc >= w) return e;
-    const size_t j = static_cast<size_t>(r) * w + cc;
-    if (nd[j]) return e;
-    const float v = z[j] * zscale;
-    return isnan(v) ? e : v;
+struct TerrainOp {
+  using Res = float;
+  using Out = float;
+  static constexpr float OK_MAX = 1.5111572745182865e+23f;  // 2^77
+  float zscale;
+  float d8L, dLL, d4LL, d2L;  // 8L, L*L, (4L)*L, 2L
+  int fast;
+  struct Thread {
+    float y8L, yLL, y4LL, y2L;
   };
-  const float a = nb(-1, -1), b = nb(-1, 0), c = nb(-1, 1);
-  const float d = nb(0, -1), f = nb(0, 1);
-  const float g = nb(1, -1), hh = nb(1, 0), i = nb(1, 1);
 
-  const float fx = ((c + 2.0f * f + i) - (a + 2.0f * d + g)) / (8.0f * L);
-  const float fy = ((g + 2.0f * hh + i) - (a + 2.0f * b + c)) / (8.0f * L);
-  float res;
-  if (ATTRIB <= 3) {
-    const float rr = sqrtf(fx * fx + fy * fy);
-    if (ATTRIB == 0) res = rr;
-    if (ATTRIB == 1) res = 100.0f * rr;
-    if (ATTRIB == 2) res = atanf(rr) * RAD2DEG;
-    if (ATTRIB == 3) res = atanf(rr);
-  } else if (ATTRIB == 4) {
-    if (fx == 0.0f && fy == 0.0f) {
-      res = -1.0f;
-    } else {
-      // floor modulo, as `%` in torch and JAX (fmodf truncates)
-      float m = fmodf(atan2f(-fx, fy) * RAD2DEG, 360.0f);
-      if (m != 0.0f && m < 0.0f) m += 360.0f;
-      res = m;
+  __device__ static float off() { return __int_as_float(0x7fffffff); }
+  __device__ float fold(float z) const { return z * zscale; }
+  __device__ Thread prepare() const {
+    return {refined_rcp(d8L), refined_rcp(dLL), refined_rcp(d4LL),
+            refined_rcp(d2L)};
+  }
+
+  template <bool FAST>
+  __device__ float cell(const float (&win)[3][6], int x,
+                        const Thread& t) const {
+    // a b c / d e f / g h i, a NaN (invalid) neighbour reading the centre
+    const float e = win[1][x + 1];
+    auto nb = [e](float v) { return isnan(v) ? e : v; };
+    const float a = nb(win[0][x]), b = nb(win[0][x + 1]),
+                c = nb(win[0][x + 2]);
+    const float d = nb(win[1][x]), f = nb(win[1][x + 2]);
+    const float g = nb(win[2][x]), hh = nb(win[2][x + 1]),
+                i = nb(win[2][x + 2]);
+    if (ATTRIB <= 4) {
+      const float fx = quotient<FAST>((c + 2.0f * f + i) - (a + 2.0f * d + g),
+                                      d8L, t.y8L);
+      const float fy = quotient<FAST>((g + 2.0f * hh + i) - (a + 2.0f * b + c),
+                                      d8L, t.y8L);
+      if (ATTRIB == 4) {
+        if (fx == 0.0f && fy == 0.0f) return -1.0f;
+        // floor modulo, as `%` in torch and JAX (fmodf truncates)
+        float m = fmodf(atan2f(-fx, fy) * RAD2DEG, 360.0f);
+        if (m != 0.0f && m < 0.0f) m += 360.0f;
+        return m;
+      }
+      const float rr = sqrtf(fx * fx + fy * fy);
+      if (ATTRIB == 0) return rr;
+      if (ATTRIB == 1) return 100.0f * rr;
+      if (ATTRIB == 2) return atanf(rr) * RAD2DEG;
+      return atanf(rr);
     }
-  } else {
-    const float D = ((d + f) / 2.0f - e) / (L * L);
-    const float E = ((b + hh) / 2.0f - e) / (L * L);
-    const float F = (-a + c + g - i) / (4.0f * L * L);
-    const float G = (-d + f) / (2.0f * L);
-    const float H = (b - hh) / (2.0f * L);
+    const float D = quotient<FAST>((d + f) * 0.5f - e, dLL, t.yLL);
+    const float E = quotient<FAST>((b + hh) * 0.5f - e, dLL, t.yLL);
+    const float F = quotient<FAST>(-a + c + g - i, d4LL, t.y4LL);
+    const float G = quotient<FAST>(-d + f, d2L, t.y2L);
+    const float H = quotient<FAST>(b - hh, d2L, t.y2L);
     const float g2h2 = G * G + H * H;
     const float den = fmaxf(g2h2, 1e-30f);
-    if (ATTRIB == 5) {
-      res = -2.0f * (D + E) * 100.0f;
-    } else if (ATTRIB == 6) {
-      res = g2h2 == 0.0f
-                ? 0.0f
-                : 2.0f * (D * H * H + E * G * G - F * G * H) / den * 100.0f;
-    } else {
-      res = g2h2 == 0.0f
-                ? 0.0f
-                : -2.0f * (D * G * G + E * H * H + F * G * H) / den * 100.0f;
-    }
+    if (ATTRIB == 5) return -2.0f * (D + E) * 100.0f;
+    if (ATTRIB == 6)
+      return g2h2 == 0.0f
+                 ? 0.0f
+                 : 2.0f * (D * H * H + E * G * G - F * G * H) / den * 100.0f;
+    return g2h2 == 0.0f
+               ? 0.0f
+               : -2.0f * (D * G * G + E * H * H + F * G * H) / den * 100.0f;
   }
-  out[at] = res;
-}
+
+  template <bool FAST>
+  __device__ void cells(const float (&win)[3][6], size_t, const Thread& t,
+                        float (&res)[4]) const {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) res[x] = cell<FAST>(win, x, t);
+  }
+  template <bool VEC>
+  __device__ static void store(const float (&res)[4], const uint8_t* nodata,
+                               float* out, size_t idx, int c, int w) {
+    rd::tile::store_floats<VEC>(res, nodata, out, idx, c, w);
+  }
+};
 
 template <int ATTRIB>
-void launch(const float* z, const uint8_t* nd, float* out, int h, int w,
-            float zscale, float cellsize, cudaStream_t s) {
-  const dim3 block(BX, BY);
-  const dim3 grid((w + BX - 1) / BX, (h + BY - 1) / BY);
-  terrain_kernel<ATTRIB><<<grid, block, 0, s>>>(z, nd, out, h, w, zscale,
-                                                cellsize);
+int launch(const float* z, const uint8_t* nd, float* out, int h, int w,
+           float zscale, float L, void* stream) {
+  using rd::tile::divisor_ok;
+  TerrainOp<ATTRIB> op{zscale, 8.0f * L, L * L, 4.0f * L * L, 2.0f * L, 0};
+  // the divisors this attribute divides by
+  op.fast = ATTRIB <= 4 ? divisor_ok(op.d8L)
+                        : divisor_ok(op.dLL) && divisor_ok(op.d4LL) &&
+                              divisor_ok(op.d2L);
+  return rd::tile::launch(z, nd, out, h, w, op, stream);
 }
 
 }  // namespace
@@ -120,17 +150,15 @@ void launch(const float* z, const uint8_t* nd, float* out, int h, int w,
 extern "C" int rd_terrain(const float* z, const uint8_t* nodata, float* out,
                           int h, int w, float zscale, float cellsize,
                           int attrib, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (attrib) {
-    case 0: launch<0>(z, nodata, out, h, w, zscale, cellsize, s); break;
-    case 1: launch<1>(z, nodata, out, h, w, zscale, cellsize, s); break;
-    case 2: launch<2>(z, nodata, out, h, w, zscale, cellsize, s); break;
-    case 3: launch<3>(z, nodata, out, h, w, zscale, cellsize, s); break;
-    case 4: launch<4>(z, nodata, out, h, w, zscale, cellsize, s); break;
-    case 5: launch<5>(z, nodata, out, h, w, zscale, cellsize, s); break;
-    case 6: launch<6>(z, nodata, out, h, w, zscale, cellsize, s); break;
-    case 7: launch<7>(z, nodata, out, h, w, zscale, cellsize, s); break;
+    case 0: return launch<0>(z, nodata, out, h, w, zscale, cellsize, stream);
+    case 1: return launch<1>(z, nodata, out, h, w, zscale, cellsize, stream);
+    case 2: return launch<2>(z, nodata, out, h, w, zscale, cellsize, stream);
+    case 3: return launch<3>(z, nodata, out, h, w, zscale, cellsize, stream);
+    case 4: return launch<4>(z, nodata, out, h, w, zscale, cellsize, stream);
+    case 5: return launch<5>(z, nodata, out, h, w, zscale, cellsize, stream);
+    case 6: return launch<6>(z, nodata, out, h, w, zscale, cellsize, stream);
+    case 7: return launch<7>(z, nodata, out, h, w, zscale, cellsize, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -39,17 +39,19 @@ from richdem_tpu_torch._build import Kernel, stream_handle
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
 
 __all__ = ["D8", "RHO8", "d8_plain", "d8_core", "d8_flowdirs",
-           "philox4x32", "philox_bits", "rho8_diagonal", "rho8_plain", "rho8_core",
-           "rho8_flowdirs", "dinf_flowdirs", "proportions_from_dinf",
-           "proportions_from_d8", "flow_proportions"]
+           "stencil_tile_shape",
+           "philox_round_keys", "philox4x32", "philox_bits", "rho8_diagonal",
+           "rho8_plain", "rho8_core", "rho8_flowdirs",
+           "dinf_flowdirs", "proportions_from_dinf", "proportions_from_d8",
+           "flow_proportions"]
 
 _P = ctypes.c_void_p
 D8 = Kernel("d8", "rd_d8_flowdirs",
             [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_float, ctypes.c_int, _P])
 RHO8 = Kernel("rho8", "rd_rho8_flowdirs",
-              [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-               ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, _P])
+              [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,
+               ctypes.c_int, _P])
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 _INVALID = -3.0e38  # slope of an invalid neighbour
@@ -135,6 +137,17 @@ def d8_core(z, nodata_mask, cellsize=1.0, topology="D8"):
     return out
 
 
+def stencil_tile_shape():
+    """The shared-memory tile (``csrc/stencil_tile.cuh``) on which D8, Rho8
+    and terrain run, read through D8's library (built if needed): tile
+    ``rows`` and ``cols``, ``threads`` a block, and the cells a thread
+    computes (``cell_rows`` × ``cell_cols``)."""
+    out = (ctypes.c_int * 5)()
+    D8.entry("rd_stencil_tile_shape", [ctypes.c_void_p])(out)
+    return dict(zip(("rows", "cols", "threads", "cell_rows", "cell_cols"),
+                    out))
+
+
 def d8_flowdirs(dem, no_data=None, topology="D8", cellsize=1.0,
                 device="cuda"):
     """Steepest-descent single flow directions of a DEM: a tensor (the
@@ -163,17 +176,27 @@ def _mulhilo(m, x):
     return (p_hi >> 16) + (mid >> 32), mid & _MASK32
 
 
+def philox_round_keys(seed):
+    """The ``(k0, k1)`` key of each of the 10 rounds of Philox4x32-10 keyed
+    by the low 64 bits of ``seed``: the same for every counter, so the
+    kernel takes them from the host."""
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    keys = []
+    for _ in range(PHILOX_ROUNDS):
+        keys.append((k0, k1))
+        k0, k1 = (k0 + PHILOX_W[0]) & _MASK32, (k1 + PHILOX_W[1]) & _MASK32
+    return tuple(keys)
+
+
 def philox4x32(counter, seed):
     """Philox4x32-10 of the four uint32 counter words (int64 tensors of one
     shape), keyed by the low 64 bits of ``seed``; returns the four output
-    words.  The key schedule is host arithmetic on Python ints."""
+    words."""
     c0, c1, c2, c3 = counter
-    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
-    for _ in range(PHILOX_ROUNDS):
+    for k0, k1 in philox_round_keys(seed):
         hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
         hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0, k1 = (k0 + PHILOX_W[0]) & _MASK32, (k1 + PHILOX_W[1]) & _MASK32
     return c0, c1, c2, c3
 
 
@@ -218,9 +241,10 @@ def rho8_core(z, nodata_mask, cellsize=1.0, seed=0, topology="D8"):
     out = torch.empty(z.shape, dtype=torch.int8, device=z.device)
     if h == 0 or w == 0:
         return out
+    keys = [k for pair in philox_round_keys(seed) for k in pair]
     RHO8.launch(z.data_ptr(), nodata_mask.data_ptr(), out.data_ptr(), h, w,
-                float(np.float32(cellsize)), seed & _MASK32,
-                (seed >> 32) & _MASK32, int(topology == "D4"),
+                float(np.float32(cellsize)),
+                (ctypes.c_uint32 * len(keys))(*keys), int(topology == "D4"),
                 stream_handle(z.device))
     return out
 

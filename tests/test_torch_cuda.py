@@ -27,7 +27,9 @@ the last tile short, on rows that
 are and are not 16-byte aligned (the float4 and the scalar consumers),
 at heights 1, 2 and one past the ring.  The D8 tile kernel is bitwise
 ``d8_plain`` at widths 1 to 4099 and heights 1 to 3, on aligned and
-unaligned rows, and on values that leave its fast division's range.  The
+unaligned rows, and on values that leave its fast division's range; so
+are the Rho8 codes and the terrain attributes on the same tile
+(``csrc/stencil_tile.cuh``), the non-atan attributes bit for bit.  The
 D∞ and multi-flow sweeps, whose tiles trade edge values, equal their plain
 versions and the plain sweep over whole rows at widths from 1 to 8300,
 on grids wider than the card's resident blocks, and through a whole Quinn
@@ -741,6 +743,120 @@ def test_d8_tile_kernel_extreme_values(dev, cellsize):
         got = flowdirs.d8_core(zt, mask, cellsize, topology)
         assert torch.equal(got, flowdirs.d8_plain(zt, mask, cellsize,
                                                   topology))
+
+
+TERRAIN_ATAN = ("slope_radians", "slope_degrees", "aspect")
+
+
+def _assert_terrain(got, ref, attrib):
+    """NaN where the plain version has NaN; the other values bit for bit
+    (the sign of zero included), the atan attributes within rtol 1e-6."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    if attrib in TERRAIN_ATAN:
+        torch.testing.assert_close(got[~nan], ref[~nan], rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got[~nan].view(torch.int32),
+                           ref[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("width", D8_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_terrain_tile_kernel_widths(dev, width, offset):
+    """All 8 attributes of the terrain kernel on the shared-memory tile
+    equal ``terrain_plain`` at heights 1, 2 and 3, with nodata holes, at
+    (zscale, cellsize) (2, 3) and (1, 1); offset 0 runs the 16-byte path
+    where the width is a multiple of 4, offset 1 the scalar path."""
+    for height in (1, 2, 3):
+        shape = (height, width)
+        z, _ = _dem(shape, dev, seed=width + height)
+        rng = np.random.default_rng(width)
+        mask = torch.from_numpy(rng.random(shape) < 0.1).to(dev)
+        zu, mu = _unaligned(z, offset), _unaligned(mask, 3 * offset)
+        for zscale, cellsize in ((2.0, 3.0), (1.0, 1.0)):
+            for attrib in terrain.TERRAIN_ATTRIBUTES:
+                _assert_terrain(
+                    terrain.terrain_fused(zu, mu, zscale, cellsize, attrib),
+                    terrain.terrain_plain(z, mask, zscale, cellsize, attrib),
+                    attrib)
+
+
+RHO8_TILE_SEEDS = (0, 5, 2 ** 33 + 7)
+
+
+@pytest.mark.parametrize("width", D8_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rho8_tile_kernel_widths(dev, width, offset):
+    """Rho8 and Rho4 codes of the shared-memory tile kernel equal
+    ``rho8_plain`` on ``rho8_diagonal`` at heights 1, 2 and 3, with nodata
+    holes and cellsize 3, for seeds whose key has a high word of 0 and of
+    2; offsets as in the D8 tile test."""
+    for height in (1, 2, 3):
+        shape = (height, width)
+        z, _ = _dem(shape, dev, seed=width + height)
+        rng = np.random.default_rng(width)
+        mask = torch.from_numpy(rng.random(shape) < 0.1).to(dev)
+        zu, mu = _unaligned(z, offset), _unaligned(mask, 3 * offset)
+        for seed in RHO8_TILE_SEEDS:
+            diag = flowdirs.rho8_diagonal(shape, seed, dev)
+            for topology in ("D8", "D4"):
+                got = flowdirs.rho8_core(zu, mu, 3.0, seed, topology)
+                assert torch.equal(got, flowdirs.rho8_plain(
+                    z, mask, 3.0, diag, topology))
+
+
+def _extreme_case(dev, edge):
+    """A 70×300 raster whose 128×32 tiles hold values that leave the fast
+    division's range (zeros are in it): denormals in tile (0, 0), values
+    past 2^79, FLT_MAX as data, ±inf, NaN as data and 1e-30 in tile
+    (1, 1), 2^-52 in tiles (1, 2) and (2, 2); and values on its edges,
+    ±2^-50 and ±``edge``, in tile (2, 0); with nodata holes."""
+    shape = (70, 300)
+    rng = np.random.default_rng(4)
+    z = rng.uniform(-5.0, 5.0, shape).astype(np.float32)
+    z[::7, ::3] = 0.0
+    z[3, :40] = rng.uniform(0, 1e-38, 40)
+    z[40, 130:160] = rng.choice([1e30, -1e30, 3.4028235e38, np.inf, -np.inf,
+                                 np.nan, 1e-30], 30)
+    z[60:, 260:] = 2.0 ** -52
+    z[65:69, 2:120] = rng.choice([2.0 ** -50, -2.0 ** -50, edge, -edge,
+                                  0.0, 1.5], (4, 118))
+    mask = torch.from_numpy(rng.random(shape) < 0.05).to(dev)
+    return torch.from_numpy(z).to(dev), mask
+
+
+@pytest.mark.parametrize("kind", ["terrain", "rho8"])
+def test_stencil_tile_extreme_values(dev, kind):
+    """Blocks whose values leave the fast division's range, and a cellsize
+    below it (1e-7), take the division itself; a block at the range's
+    edges takes the fast division.  Terrain (every attribute, zscale 1
+    and 2) and Rho8 / Rho4 codes (two seeds) equal their plain versions
+    either way."""
+    if kind == "terrain":
+        z, mask = _extreme_case(dev, 2.0 ** 77)
+        for zscale, cellsize in ((1.0, 3.0), (2.0, 3.0), (1.0, 1e-7)):
+            for attrib in terrain.TERRAIN_ATTRIBUTES:
+                _assert_terrain(
+                    terrain.terrain_fused(z, mask, zscale, cellsize, attrib),
+                    terrain.terrain_plain(z, mask, zscale, cellsize, attrib),
+                    attrib)
+        return
+    z, mask = _extreme_case(dev, 2.0 ** 79)
+    for cellsize in (3.0, 1e-7):
+        for seed in (0, 2 ** 33 + 7):
+            diag = flowdirs.rho8_diagonal(z.shape, seed, dev)
+            for topology in ("D8", "D4"):
+                got = flowdirs.rho8_core(z, mask, cellsize, seed, topology)
+                assert torch.equal(got, flowdirs.rho8_plain(
+                    z, mask, cellsize, diag, topology))
+
+
+def test_stencil_tile_shape(dev):
+    """D8, Rho8 and terrain run on one tile: 32 rows by 128 columns, 256
+    threads, 4×4 cells a thread."""
+    assert flowdirs.stencil_tile_shape() == {
+        "rows": 32, "cols": 128, "threads": 256, "cell_rows": 4,
+        "cell_cols": 4}
 
 
 def _flow_case(shape, dev, seed):

@@ -66,6 +66,28 @@ def test_philox_known_answers(counter, key, want):
     assert tuple(int(x) for x in got) == want
 
 
+@pytest.mark.parametrize("seed", [0, 5, 2 ** 33 + 7, 2 ** 64 - 1, -3])
+def test_philox_round_keys(seed):
+    """The round keys the Rho8 kernel takes from the host are the schedule
+    of ``philox4x32``: round r keys ``(k0 + r·0x9E3779B9, k1 +
+    r·0xBB67AE85)`` mod 2³² from the seed's low and high words, and
+    running the rounds with them gives ``philox4x32``'s words."""
+    k0, k1 = seed % 2 ** 32, (seed >> 32) % 2 ** 32
+    keys = tflow.philox_round_keys(seed)
+    assert keys == tuple(((k0 + r * 0x9E3779B9) % 2 ** 32,
+                          (k1 + r * 0xBB67AE85) % 2 ** 32)
+                         for r in range(10))
+    ctr = np.random.default_rng(seed % 1000).integers(0, 2 ** 32, (4, 16))
+    got = tflow.philox4x32([torch.from_numpy(c) for c in ctr], seed)
+    for j in range(ctr.shape[1]):  # the rounds in Python integers
+        c0, c1, c2, c3 = (int(x) for x in ctr[:, j])
+        for rk0, rk1 in keys:
+            p0, p1 = 0xD2511F53 * c0, 0xCD9E8D57 * c2
+            c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ rk0, p1 % 2 ** 32,
+                              (p0 >> 32) ^ c3 ^ rk1, p0 % 2 ** 32)
+        assert tuple(int(w[j]) for w in got) == (c0, c1, c2, c3)
+
+
 @pytest.mark.parametrize("topology", ["D8", "D4"])
 @pytest.mark.parametrize("hw,cellsize,seed", [((61, 90), 1.0, 2),
                                               ((100, 37), 2.5, 3)])

@@ -8,9 +8,9 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
 ``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths``,
-``scan_widths``, ``sweep_rows``, ``flow_tiles``, ``walk_tiles`` and
-``resolve_tiles`` (all when none is named).  Paths, at 10240² on a Perlin
-DEM (seed 0), each after one warm-up step:
+``scan_widths``, ``sweep_rows``, ``flow_tiles``, ``walk_tiles``,
+``resolve_tiles`` and ``stencils`` (all when none is named).  Paths, at
+10240² on a Perlin DEM (seed 0), each after one warm-up step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
   config 3, ``bench.py``'s default);
@@ -81,12 +81,26 @@ each at the port's tiles (``RD_WALK_PROFILE``: the cycles of each part of
 a row step, ``WALK_PARTS``, by block, on the consumer thread of the
 tile's first column).
 ``resolve_tiles`` does the same for the resolve sweep alone.
+``stencils`` runs no trace either: for the three kernels on the
+shared-memory tile (``csrc/stencil_tile.cuh``: D8, Rho8, terrain) it
+prints, as a diagnostic, the instructions of each entry function's SASS
+(``cuobjdump -sass`` of the built library) by class, then times one
+call of D8 and Rho8 (D8 and D4) and of every terrain attribute on
+10240-row Perlin rasters of widths 1024, 4096 and 10240 with CUDA events
+(one warm-up call, then the mean of three), each checked against its
+plain version first (terrain's atan attributes within rtol 1e-6, the rest
+bitwise); one JSON line per kernel, variant and width with the
+milliseconds per call, the bound (``chip_smoke.bound_ms``) and its share,
+and the registers and spills of the entry that ran.
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
 step, the device busy time (the union of the kernel, memcpy and memset
-intervals of the trace), the idle share (1 − busy / wall), and device time
-and launch count by group: each of the port's eleven kernels by its CUDA
+intervals of the trace), the idle share (1 − busy / wall), the copy calls
+whose device record the trace lacks (count and host ms: a path traced
+after another in one process has lost the record of its one large
+pageable host→card copy, so ``api`` is traced first), and device time and
+launch count by group: each of the port's eleven kernels by its CUDA
 function name, the rest by the name of the PyTorch kernel (up to 14
 groups).  The card's
 ``name, power.limit`` comes first.  Imports nothing of JAX.
@@ -96,30 +110,31 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 MAIN = 10240
 #: CUDA function name (as the trace shows it) → kernel of the port
-PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep", "d8_kernel": "d8",
+PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep",
+                # rd::tile::kernel, instantiated per stencil op
+                "D8Op": "d8", "TerrainOp": "terrain", "Rho8Op": "rho8",
                 "accum_sweep_kernel": "accum_sweep",
                 # seam_walk_kernel, instantiated per rule
                 "DistSweep": "dist_sweep",
-                "terrain_kernel": "terrain",
                 # flow_sweep_kernel, instantiated per field
                 "DinfField": "dinf_sweep", "MfdField": "mfd_sweep",
-                "rho8_kernel": "rho8",
                 "ResolveSweep": "resolve_sweep",
                 "Strahler": "strahler_sweep",
                 "fill_scan_kernel": "fill_scan"}
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
          "rho8", "api", "depths", "scan_widths", "sweep_rows", "flow_tiles",
-         "walk_tiles", "resolve_tiles")
+         "walk_tiles", "resolve_tiles", "stencils")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
 SCAN_ROWS = 2048
@@ -193,6 +208,12 @@ def trace(name, fn, out_dir):
     events = [e for e in doc.get("traceEvents", [])
               if e.get("ph") == "X"
               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    copied = {e.get("args", {}).get("correlation") for e in events
+              if e["cat"] == "gpu_memcpy"}
+    lost = [e["dur"] for e in doc.get("traceEvents", [])
+            if e.get("cat") == "cuda_runtime"
+            and e.get("name", "").startswith("cudaMemcpy")
+            and e.get("args", {}).get("correlation") not in copied]
     groups = defaultdict(lambda: [0.0, 0])
     for e in events:
         g = groups[_group(e.get("name", ""))]
@@ -202,6 +223,7 @@ def trace(name, fn, out_dir):
     top = sorted(groups.items(), key=lambda kv: -kv[1][0])
     return {"path": name, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us, "events": len(events),
+            "copies_without_device_record": [len(lost), sum(lost) / 1e3],
             "by_group_ms": {k: [round(v[0] / 1e3, 4), v[1]]
                             for k, v in top[:14]}}
 
@@ -563,6 +585,135 @@ def flow_tiles(dev, card):
                 setattr(mod, attr, default)
 
 
+#: SASS opcodes by class: float32, the special-function unit, and
+#: memory, control and uniform-datapath instructions ("other"); every
+#: other opcode counts as int32.  A diagnostic: the bounds count the
+#: function's operations (``chip_smoke.COST``), not the kernel's
+SASS_FP32 = ("FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX", "FCHK",
+             "FSET")
+SASS_XU = ("MUFU", "F2I", "F2F")
+SASS_OTHER = ("LD", "ST", "BRA", "BSSY", "BSYNC", "EXIT", "BAR", "U", "S2R",
+              "S2UR", "NOP", "CALL", "RET", "P2R", "R2P", "MEMBAR", "DMUL",
+              "WARPSYNC")
+#: the stencil kernels' entries: mangled Op name, its template argument,
+#: and VEC
+STENCIL_ENTRY = re.compile(r"(D8Op|Rho8Op|TerrainOp)IL[bi](\d+)EEELb(\d)E")
+
+
+def _sass_class(ins):
+    op = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+    if op.startswith(SASS_FP32):
+        return "fp32"
+    if op.startswith(SASS_XU) or (op.startswith("I2F")
+                                  and not op.startswith("I2FP")):
+        return "xu"
+    if op.startswith(SASS_OTHER):
+        return "other"
+    return "int32"
+
+
+def _sass_functions(kernel):
+    """Per entry function of ``kernel``'s built library, its SASS
+    instructions (``cuobjdump -sass``)."""
+    from richdem_tpu_torch import _build
+
+    kernel.function()
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    return _parse_sass(subprocess.run(
+        [tool, "-sass", kernel.library], capture_output=True, text=True,
+        check=True).stdout)
+
+
+def _parse_sass(text):
+    """``cuobjdump -sass`` output → {function: [instruction]}."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    return funcs
+
+
+def _stencil_entry(kernel, arg, vec):
+    """The mangled name of ``kernel``'s entry for template argument
+    ``arg`` (D4 for D8 and Rho8, the attribute's index for terrain) and
+    VEC."""
+    for name in kernel.resources():
+        m = STENCIL_ENTRY.search(name)
+        if m and int(m.group(2)) == arg and int(m.group(3)) == vec:
+            return name
+    raise RuntimeError(f"no {kernel.name} entry for {arg}, VEC {vec}")
+
+
+def stencils(dev, card):
+    """The D8, Rho8 and terrain kernels on the shared-memory tile: their
+    SASS by instruction class, and one call of each variant timed at each
+    width beside its bound."""
+    import torch
+    from chip_smoke import bound_ms
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import flowdirs, terrain
+
+    kernels = (flowdirs.D8, flowdirs.RHO8, terrain.TERRAIN)
+    for kern in kernels:
+        for name, ins in _sass_functions(kern).items():
+            m = STENCIL_ENTRY.search(name)
+            print(json.dumps({
+                "stencil_sass": kern.name,
+                "op": m and f"{m.group(1)}<{m.group(2)}>, VEC {m.group(3)}",
+                "entry": name,
+                "static": dict(Counter(map(_sass_class, ins))),
+                "card": card}),
+                flush=True)
+    for width in SWEEP_WIDTHS:
+        z = tsynth.perlin_dem(SWEEP_ROWS, width, seed=0, device=dev)
+        nd = torch.zeros_like(z, dtype=torch.bool)
+        n = z.numel()
+        runs = []  # (kernel, variant, call, plain, cost, template arg)
+        for topo in ("D8", "D4"):
+            d4 = int(topo == "D4")
+            runs.append((flowdirs.D8, topo,
+                         lambda t=topo: flowdirs.d8_core(z, nd, 1.0, t),
+                         lambda t=topo: flowdirs.d8_plain(z, nd, 1.0, t),
+                         "d8", d4))
+            runs.append((flowdirs.RHO8, topo,
+                         lambda t=topo: flowdirs.rho8_core(z, nd, 1.0, 0, t),
+                         lambda t=topo: flowdirs.rho8_plain(
+                             z, nd, 1.0, flowdirs.rho8_diagonal(
+                                 z.shape, 0, dev), t),
+                         "rho8_d4" if d4 else "rho8", d4))
+        for k, attrib in enumerate(terrain.TERRAIN_ATTRIBUTES):
+            runs.append((terrain.TERRAIN, attrib,
+                         lambda a=attrib: terrain.terrain_fused(
+                             z, nd, 1.0, 1.0, a),
+                         lambda a=attrib: terrain.terrain_plain(
+                             z, nd, 1.0, 1.0, a), "terrain", k))
+        for kern, variant, call, plain, cost, arg in runs:
+            got, ref = call(), plain()
+            if variant in ("slope_radians", "slope_degrees", "aspect"):
+                torch.testing.assert_close(got, ref, rtol=1e-6, atol=0,
+                                           equal_nan=True)
+            elif not torch.equal(got.view(torch.uint8),
+                                 ref.view(torch.uint8)):
+                raise AssertionError(f"{kern.name} {variant} at width "
+                                     f"{width} differs from its plain "
+                                     "version")
+            del got, ref
+            ms = _events_ms(call)
+            bound, bound_by = bound_ms(cost, n)
+            print(json.dumps({
+                "stencils": kern.name, "variant": variant,
+                "rows": SWEEP_ROWS, "width": width, "ms": ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "share": bound / ms,
+                "resources": kern.resources()[_stencil_entry(kern, arg, 1)],
+                "card": card}), flush=True)
+
+
 def main():
     import torch
 
@@ -572,7 +723,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile needs one")
     out_dir = sys.argv[1]
-    paths = sys.argv[2:] or PATHS
+    # api first: see copies_without_device_record
+    paths = sorted(sys.argv[2:] or PATHS, key=lambda p: p != "api")
     os.makedirs(out_dir, exist_ok=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -634,6 +786,9 @@ def main():
             continue
         if name == "flow_tiles":
             flow_tiles(dev, card)
+            continue
+        if name == "stencils":
+            stencils(dev, card)
             continue
         if name in ("walk_tiles", "resolve_tiles"):
             walk_tiles(dev, card, ("resolve_sweep",) if name ==
