@@ -87,10 +87,29 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    distance, resolve and Strahler sweeps; every terrain attribute, and
    Rho4 beside Rho8, timed beside its bound; pointer doubling's watershed
    labels timed on the d8_methods codes beside the resolve sweep (another
-   engine, a reference point).
+   engine, a reference point);
+14. twopass — the [P1]/[P2] out-of-core programs on ``.npy`` rasters in a
+   temporary directory: first the path's five kernels (fill, D8, distance,
+   resolve and accumulation sweeps) on one 2048² tile, each bitwise its
+   plain version and timed beside its bound at that shape; then
+   ``out_of_core_fill`` of the api path's DEM (10240² Perlin seed 0 with
+   nodata holes; tile 2048, device consumer, tiles not cached) in exactly
+   two data passes, bitwise the in-core fill, its wall time split by
+   ``debug.PhaseTimer``; ``out_of_core_accum_d8`` of that fill's D8 codes
+   in two passes, bitwise the in-core accumulation below 2²⁴ and within
+   ``TWOPASS_ACC_RTOL`` above; the native C++ consumer bitwise the device
+   consumer at 2048² (tile 512); the ε = 1e-3 Schwarz fill at 4096² (tile
+   1024) bitwise the in-core folded ε-fill from ``w0 = BIG``, with the
+   in-core ``fill_epsilon`` (which starts from the multigrid upper bound
+   at this size) at or below it within ``ENGINES_ATOL``; and the card's
+   peak at 10240² within 10 % of the peak at 4096² (tile 2048, not
+   cached).
 
 Each path's launch counts are set to 0 just before it runs and read just
-after.  The line before the last is the per-kernel JSON record; the last
+after; the two-pass programs are two paths (``twopass_fill``,
+``twopass_accum``), whose launches and tile-width times each of their
+kernels' records carries under ``twopass``.  The line before the last is
+the per-kernel JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  The script imports no JAX and
 nothing of the JAX package.
 """
@@ -123,6 +142,25 @@ SERPENTINE = 2048  # edge of the walled serpentine pit
 #: ramp (up to about 2048) is exact in float32
 SERPENTINE_EPS = 2.0 ** -10
 D4_SIZE = 2048  # edge of the api path's D4 fill
+TWOPASS_TILE = 2048  # tile of the two-pass path at MAIN²
+#: the native consumer's cross-check: edge and tile
+TWOPASS_CHECK = (2048, 512)
+#: the ε Schwarz check: edge, tile and ε
+SCHWARZ = (4096, 1024, 1e-3)
+#: the two-pass memory check: the peak at MAIN² within this share of the
+#: peak at SCHWARZ[0]² (same tile, tiles not cached on the card)
+MEMORY_SHARE = 0.10
+#: the kernels of the two-pass path: the local fill and the ring-pinned
+#: apply, D8 and flat resolution of the labels, the drain labels and the
+#: accumulation's links, and the [P2] local solves
+TWOPASS_KERNELS = ("fill_sweep", "d8", "dist_sweep", "resolve_sweep",
+                   "accum_sweep")
+#: two-pass accumulation against the in-core one, on cells whose in-core
+#: value reaches 2²⁴: float32 sums of more unit weights than that round,
+#: and the tiled replay adds an entry cell's inflow to its weight where
+#: the in-core sweep adds it to the other inflows, so the two round apart
+#: there (16 ulp); below 2²⁴ every sum is an exact integer: bitwise
+TWOPASS_ACC_RTOL = 1e-6
 #: ε > 0 fills of Perlin DEMs: the largest |scan − folded|, and the largest
 #: distance of either to the native engine's float64 fill.  Every float32
 #: ε step rounds (the folded engine once a step, the scan engine twice an
@@ -1889,6 +1927,248 @@ def phase_scan_timing(dev, card, dem, mask, eps, err, times):
         f"bitwise to plain; its cluster: {SHAPES['fill_scan']}")
 
 
+def twopass_tile_kernels(dem, mask, err, card, times):
+    """The five kernels of the two-pass path on the first TWOPASS_TILE²
+    tile of the two-pass DEM, as the consumers call them: each against its
+    plain version (bitwise), then one call of each timed beside its
+    bound at that shape (``times[name]``)."""
+    import torch
+    from richdem_tpu_torch.ops import (accum, fill, flats, flowdirs,
+                                       successor, sweeps)
+
+    t = TWOPASS_TILE
+    dev = mask.device
+    z = torch.from_numpy(np.ascontiguousarray(dem[:t, :t])).to(dev)
+    m = mask[:t, :t].contiguous()
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    floor = torch.where(m, neg, z).contiguous()
+    w0 = torch.where(m, neg, torch.full_like(z, sweeps.BIG)).contiguous()
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    filled = fill.fill_depressions(z, no_data=ND)
+    fd = flowdirs.d8_core(filled, m)
+    ff = flats.flat_fields(filled, fd, m)
+    zed, fl = ff["zed"].contiguous(), ff["flags"].contiguous()
+    big = torch.tensor(sweeps.BIG, device=dev)
+    wt0 = torch.where(ff["outlet"], 0.0, big).contiguous()
+    fd_eff = successor.effective_codes(fd)
+    pinned = fd_eff == 0
+    code = successor.pack_codes(fd_eff, pinned)
+    own = torch.arange(t * t, dtype=torch.int32, device=dev).view(t, t)
+    v0 = torch.where(pinned, own, -1).to(torch.int32).contiguous()
+    ones = torch.where(fd < 0, 0.0, torch.ones_like(z)).contiguous()
+    calls = {
+        "fill_sweep": (
+            lambda: fill.fill_sweep(w0, floor, 0.0, 0.0, False, flag),
+            lambda: sweeps.fill_sweep_plain(w0, floor, 0.0, 0.0, False,
+                                            flag)),
+        "d8": (lambda: flowdirs.d8_core(filled, m),
+               lambda: flowdirs.d8_plain(filled, m)),
+        "dist_sweep": (
+            lambda: flats.dist_sweep(wt0, zed, fl, "towards", 1.0, False,
+                                     flag),
+            lambda: sweeps.dist_sweep_plain(wt0, zed, fl, "towards", 1.0,
+                                            False, flag)),
+        "resolve_sweep": (
+            lambda: successor.resolve_sweep(v0, code, False),
+            lambda: successor.resolve_sweep_plain(v0, code, False)),
+        "accum_sweep": (
+            lambda: accum.accum_sweep(ones, ones, fd, False),
+            lambda: accum.accum_sweep_plain(ones, ones, fd, False)),
+    }
+    parts = []
+    for name in TWOPASS_KERNELS:
+        kern, plain = calls[name]
+        got = kern()
+        ms = cuda_ms(kern, reps=5)
+        out = {}
+        plain_ms = cuda_ms(lambda: out.setdefault("plain", plain()))
+        bitwise(name, ((got, out["plain"]),), err, f"{t}x{t} two-pass tile")
+        bound, bound_by = bound_ms(name, t * t)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by)
+        parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f} ms; bound "
+                     f"{bound:.5f} ms, {bound_by}, {100 * bound / ms:.1f} "
+                     "%)")
+    log("twopass", f"the path's kernels on a {t}x{t} tile, each bitwise "
+        f"its plain version, one call each: " + "; ".join(parts)
+        + f"; on [{card}]")
+
+
+def phase_twopass(dev, card, kernels, err):
+    """The [P1]/[P2] out-of-core programs on disk-resident rasters in a
+    temporary directory: the MAIN² fill (TWOPASS_TILE tiles, device
+    consumer, tiles not cached) bitwise the in-core fill, D8 accumulation
+    of its codes against the in-core accumulation, each in exactly two
+    data passes; the native consumer bitwise the device consumer at
+    TWOPASS_CHECK; the ε Schwarz fill bitwise the in-core folded ε-fill
+    from BIG at SCHWARZ, and the multigrid-started ε-fill at or below it
+    within ENGINES_ATOL; the card's peak at MAIN² within MEMORY_SHARE of the peak at
+    SCHWARZ[0]².  Returns the launch counts of each program and the
+    kernels' times at the tile width."""
+    import tempfile
+
+    import torch
+    from richdem_tpu_torch import debug
+    from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps
+    from richdem_tpu_torch.parallel.outofcore import (out_of_core_accum_d8,
+                                                      out_of_core_fill)
+
+    def peak_run(name, needed, call):
+        """``call()`` as a path (launch counts from 0), with the card's
+        peak above what was allocated before it, in bytes."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        out, launches = run_path(name, kernels, needed, call)
+        secs = time.perf_counter() - t0
+        return out, launches, secs, torch.cuda.max_memory_allocated(dev) - base
+
+    def held(name, got, want, what):
+        if not np.array_equal(got, want):
+            diff = np.abs(got.astype(np.float64) - want).max()
+            raise AssertionError(f"twopass {name}: {what} differs from the "
+                                 f"in-core result (max |diff| {diff})")
+
+    tile = TWOPASS_TILE
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        dem, mask = holed_dem(MAIN, 0, dev)
+        np.save(path("dem.npy"), dem)
+        twopass_tile_kernels(dem, mask, err, card, times)
+        z = torch.from_numpy(dem).to(dev)
+        want = fill.fill_depressions(z, no_data=ND).cpu().numpy()
+        del z
+        timer, stats = debug.PhaseTimer(), {}
+        _, fill_launches, fill_s, fill_peak = peak_run(
+            "twopass_fill", ("fill_sweep", "d8", "dist_sweep",
+                             "resolve_sweep"),
+            lambda: out_of_core_fill(
+                path("dem.npy"), path("filled.npy"), tile=tile,
+                method="twopass", consumer="device", no_data=ND,
+                stats=stats, cache_tiles=False, device=dev, timer=timer))
+        got = np.load(path("filled.npy"))
+        if stats["data_passes"] != 2 or stats["consumer"] != "device":
+            raise AssertionError(f"twopass fill: {stats}")
+        held("fill", got, want, f"the {MAIN}x{MAIN} fill")
+        fill_parts = dict(timer.times)
+
+        # D8 codes of that fill, and their in-core accumulation
+        fd = flowdirs.d8_flowdirs(torch.from_numpy(got).to(dev), no_data=ND)
+        np.save(path("fd.npy"), fd.cpu().numpy())
+        wts = torch.where(fd < 0, 0.0, 1.0)
+        acc_want = accum.d8_accumulation(fd, weights=wts).cpu().numpy()
+        del fd, wts, got, want
+        timer2, stats2 = debug.PhaseTimer(), {}
+        _, acc_launches, acc_s, _ = peak_run(
+            "twopass_accum", ("accum_sweep", "resolve_sweep"),
+            lambda: out_of_core_accum_d8(
+                path("fd.npy"), out_path=path("acc.npy"), tile=tile,
+                method="twopass", stats=stats2, device=dev, timer=timer2))
+        acc = np.load(path("acc.npy"))
+        if stats2["data_passes"] != 2:
+            raise AssertionError(f"twopass accumulation: {stats2}")
+        exact = acc_want < 2.0 ** 24
+        held("accumulation", acc[exact], acc_want[exact],
+             f"the {MAIN}x{MAIN} accumulation below 2^24")
+        rel = 0.0
+        if not exact.all():
+            big = ~exact
+            rel = float((np.abs(acc[big].astype(np.float64) - acc_want[big])
+                         / acc_want[big]).max())
+            if not rel <= TWOPASS_ACC_RTOL:
+                raise AssertionError(f"twopass accumulation: relative "
+                                     f"difference {rel} above 2^24")
+        n_big = int((~exact).sum())
+        acc_max = float(acc_want.max())
+        del acc, acc_want, exact
+
+        # the native consumer against the device consumer
+        edge, ctile = TWOPASS_CHECK
+        small, _ = holed_dem(edge, 2, dev)
+        np.save(path("small.npy"), small)
+        outs = {}
+        for consumer in ("device", "native"):
+            st = {}
+            outs[consumer] = np.load(out_of_core_fill(
+                path("small.npy"), path(f"small_{consumer}.npy"),
+                tile=ctile, method="twopass", consumer=consumer,
+                no_data=ND, stats=st, device=dev))
+            if st["data_passes"] != 2:
+                raise AssertionError(f"twopass {consumer} consumer: {st}")
+        if not np.array_equal(outs["native"], outs["device"]):
+            raise AssertionError("twopass: the native consumer's fill "
+                                 "differs from the device consumer's")
+
+        # the ε Schwarz fill, and the peak at SCHWARZ[0]² for the memory
+        # check
+        edge, stile, eps = SCHWARZ
+        mid, _ = holed_dem(edge, 1, dev)
+        np.save(path("mid.npy"), mid)
+        st = {}
+        t0 = time.perf_counter()
+        sch = np.load(out_of_core_fill(
+            path("mid.npy"), path("mid_eps.npy"), tile=stile, eps=eps,
+            method="schwarz", no_data=ND, stats=st, device=dev))
+        sch_s = time.perf_counter() - t0
+        zm = torch.from_numpy(mid).to(dev)
+        sch_want, _, done = fill.fill_depressions_info(
+            zm, zm == ND, eps=eps, w0=torch.full_like(zm, sweeps.BIG),
+            engine="folded")
+        if not done:
+            raise AssertionError("twopass: the in-core eps-fill from BIG "
+                                 "did not converge")
+        held("schwarz", sch, sch_want.cpu().numpy(),
+             f"the {edge}x{edge} eps={eps} Schwarz fill")
+        warm = fill.fill_epsilon(zm, no_data=ND, eps=eps,
+                                 engine="folded").cpu().numpy()
+        below = int((warm < sch).sum())
+        warm_diff = float(np.abs(warm.astype(np.float64) - sch).max())
+        if not (bool((warm <= sch).all()) and warm_diff <= ENGINES_ATOL):
+            raise AssertionError(f"twopass: the in-core eps-fill from the "
+                                 f"multigrid start is off the Schwarz fill "
+                                 f"by {warm_diff} ({below} cells below)")
+        del zm, sch_want, warm
+        _, _, _, mid_peak = peak_run(
+            "twopass_memory", (), lambda: out_of_core_fill(
+                path("mid.npy"), path("mid_filled.npy"), tile=tile,
+                method="twopass", consumer="device", no_data=ND,
+                cache_tiles=False, device=dev))
+    if not fill_peak <= (1 + MEMORY_SHARE) * mid_peak:
+        raise AssertionError(f"twopass: peak {fill_peak} B at {MAIN}^2 "
+                             f"against {mid_peak} B at {edge}^2")
+    path_kernels = {k: fill_launches[k] + acc_launches[k]
+                    for k in TWOPASS_KERNELS}
+    log("twopass", f"{MAIN}x{MAIN} Perlin seed 0 with nodata holes, "
+        f"tile {tile}, device consumer, tiles not cached: fill {fill_s:.3f} "
+        f"s ({stats['n_labels']} labels, {stats['n_edges']} edges, "
+        f"{stats['data_passes']} data passes, {stats['tile_loads']} tile "
+        f"loads), by phase {fill_parts} (disk and copies inside the "
+        f"passes), bitwise the in-core fill; launches {fill_launches}")
+    log("twopass", f"D8 accumulation of its codes: {acc_s:.3f} s "
+        f"({stats2['n_exits']} exits, {stats2['data_passes']} data "
+        f"passes), by phase {dict(timer2.times)}; bitwise the in-core "
+        f"accumulation below 2^24, {n_big} cells above it (max "
+        f"{acc_max:.0f}) within rtol {rel:.3e} (gate "
+        f"{TWOPASS_ACC_RTOL}); launches {acc_launches}")
+    log("twopass", f"native consumer bitwise the device consumer at "
+        f"{TWOPASS_CHECK[0]}^2, tile {TWOPASS_CHECK[1]}; eps={eps} Schwarz "
+        f"fill at {edge}^2, tile {stile}: {st['data_passes']} passes in "
+        f"{sch_s:.3f} s, bitwise the in-core folded eps-fill from BIG; the "
+        f"in-core fill_epsilon (its multigrid start) lies below it at "
+        f"{below} cells, by at most {warm_diff!r} (gate {ENGINES_ATOL}); "
+        f"peak "
+        f"allocated above the start {fill_peak / 2**20:.1f} MiB at "
+        f"{MAIN}^2 against {mid_peak / 2**20:.1f} MiB at {edge}^2 (tile "
+        f"{tile}, not cached; gate {100 * MEMORY_SHARE:.0f} %); the path's "
+        f"launches by kernel {path_kernels}; on [{card}]")
+    return {"twopass_fill": fill_launches,
+            "twopass_accum": acc_launches}, times
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_device()
@@ -1927,6 +2207,8 @@ def main():
     del dm, r8, z
     path_launches["api"], dem, mask, eps = phase_api(dev, card, kernels)
     phase_scan_timing(dev, card, dem, mask, eps, err, times)
+    del dem, mask
+    twopass_launches, twopass_times = phase_twopass(dev, card, kernels, err)
     if any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
            or m == "richdem_tpu"
            for m in sys.modules if sys.modules[m] is not None):
@@ -1948,7 +2230,12 @@ def main():
          "library_ms": None, **RESOURCES[k.name],
          **({"launch_shape": SHAPES[k.name]} if k.name in SHAPES else {}),
          **({"redesigned_in": REDESIGNED[k.name]}
-            if k.name in REDESIGNED else {})}
+            if k.name in REDESIGNED else {}),
+         **({"twopass": {
+             "launches": sum(run[k.name]
+                             for run in twopass_launches.values()),
+             "tile": TWOPASS_TILE, **twopass_times[k.name]}}
+            if k.name in twopass_times else {})}
         for k in kernels]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

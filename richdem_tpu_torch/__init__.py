@@ -9,11 +9,17 @@ kernels (``csrc/``), built with ``nvcc`` at first use, and on the CPU
 through their plain PyTorch versions.  Entry points run where a given
 tensor lives, and put arrays on the card unless asked for another device.
 
+The [P1]/[P2] two-pass out-of-core programs
+(:mod:`richdem_tpu_torch.parallel`: ``out_of_core_fill``,
+``out_of_core_accum_d8``) run their tile consumers through the same
+kernels, reading a disk-resident DEM exactly twice.
+
 The top-level namespace also mirrors pyrichdem's public API
 (:mod:`richdem_tpu_torch.api`: ``rdarray``, ``FillDepressions``,
 ``FlowAccumulation``, ...), so RichDEM scripts port by changing the
 import; ``PipelineConfig`` (:mod:`~richdem_tpu_torch.config`) and
-``python -m richdem_tpu_torch.cli`` complete the surface.  The JAX package
+``python -m richdem_tpu_torch.cli`` complete the surface, with ``synth``
+(device DEM generators), ``io`` and ``topology``.  The JAX package
 ``richdem_tpu`` stays the reference; this package imports nothing of it
 and never imports JAX.  Importing it touches neither CUDA nor ``nvcc``.
 """
@@ -41,6 +47,7 @@ from richdem_tpu_torch.ops.terrain import terrain_attribute
 from richdem_tpu_torch.pipeline import (check_converged, make_pipeline,
                                         terrain_pipeline)
 from richdem_tpu_torch.version import __version__
+from richdem_tpu_torch import io, synth, topology
 
 
 __all__ = ["__version__", "make_pipeline", "terrain_pipeline",
@@ -54,4 +61,5 @@ __all__ = ["__version__", "make_pipeline", "terrain_pipeline",
            "ResolveFlats", "FlowProportions", "FlowAccumulation",
            "FlowAccumFromProps", "TerrainAttribute", "FlowDirections",
            "WatershedLabels", "UpslopeCells", "StrahlerOrder", "TWI", "SPI",
-           "rdCompare", "rdShow", "PipelineConfig"]
+           "rdCompare", "rdShow", "PipelineConfig", "synth", "io",
+           "topology"]

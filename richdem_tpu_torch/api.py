@@ -135,11 +135,15 @@ def BreachDepressions(dem, in_place=False, mode="Complete", eps=0.0,
     """Depression breaching (Lindsay 2016) — a host op by design: the
     carving walk is inherently path-sequential (SURVEY.md §7 hard-part 5)
     and is serial C++ in the reference too.  Runs on the port's native
-    engine; raises ``RuntimeError`` if it cannot be built."""
+    engine when it builds, else on the Python oracle
+    (:mod:`richdem_tpu_torch.oracle.breach`); both give the same bits."""
     cite("breach")
     rd = _as_rd(dem)
     from richdem_tpu_torch import native
-    out = native.breach_depressions(
+    from richdem_tpu_torch.oracle import breach as _breach_oracle
+    impl = (native.breach_depressions if native.available()
+            else _breach_oracle.breach_depressions)
+    out = impl(
         rd.np(), no_data=rd.no_data, mode=mode, eps=eps,
         max_path_len=max_path_len, max_path_depth=max_path_depth,
         fill_remainder=fill_remainder)

@@ -88,7 +88,8 @@ class PipelineConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "the sharded mesh pipeline is not ported yet (ROADMAP "
-                "queue 1, item 14: parallel/halo.py, mesh.py, sharded.py)")
+                "queue 1, item 6: parallel/halo.py, mesh.py and "
+                "sharded.py remain)")
         if self.cache_dir:
             from richdem_tpu_torch.pipeline import resumable_pipeline
 

@@ -3,14 +3,17 @@
 The port's own copy of ``richdem_tpu.native``: the exact reference that the
 on-card gates of ``chip_smoke.py`` hold the kernels against (Priority-Flood
 fill, D8 codes, topological-queue accumulation, flat resolution, D∞ angles
-and multi-flow proportions), and the engine of the API's
+and multi-flow proportions), the engine of the API's
 ``BreachDepressions`` (Lindsay 2016 breaching, a host op as in the
-reference).  It binds only the functions the port uses.
+reference), and the serial [P1] tile consumer of the out-of-core fill
+(``fill_tile``, ``consumer="native"``).  It binds every function of the
+reference's bindings.
 
 ``core.cpp`` is built at first use with the reference's g++ flags into
 ``richdem_tpu_torch/build/librichdem_native.so`` (rebuilt when the source is
 newer), never beside the source.  There is no fallback: a missing g++ or a
-failed build raises ``RuntimeError``.  Nothing runs at import time.
+failed build raises ``RuntimeError``; :func:`available` says beforehand
+whether the engine builds and loads.  Nothing runs at import time.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ import threading
 
 import numpy as np
 
-__all__ = ["fill", "d8_flowdirs", "accum_d8", "accum_props",
+__all__ = ["available", "fill", "fill_flowdirs", "fill_watersheds",
+           "fill_tile", "d8_flowdirs", "accum_d8", "accum_props",
            "breach_depressions", "resolve_flats", "flat_mask_and_labels",
-           "dinf_flowdirs", "dinf_props", "mfd_props"]
+           "dinf_flowdirs", "dinf_props", "mfd_props", "slope_radians",
+           "twi"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "core.cpp")
@@ -92,8 +97,28 @@ def _load():
         lib.rn_breach.argtypes = [p64, i64, i64, f64, ctypes.c_int,
                                   ctypes.c_int, f64, i64, f64]
         lib.rn_breach.restype = ctypes.c_int
+        pi32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.rn_fill_tile.argtypes = [p64, i64, i64, f64, ctypes.c_int,
+                                     ctypes.c_int, pi32, pi32, pi32, p64,
+                                     i64, ctypes.POINTER(i64),
+                                     ctypes.POINTER(ctypes.c_int32)]
+        lib.rn_fill_tile.restype = ctypes.c_int
+        lib.rn_slope_radians.argtypes = [p64, p64, i64, i64, f64,
+                                         ctypes.c_int, f64, f64]
+        lib.rn_slope_radians.restype = ctypes.c_int
+        lib.rn_twi.argtypes = [p64, p64, p64, i64, f64, f64]
+        lib.rn_twi.restype = ctypes.c_int
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """True if the engine builds (or is built) and loads on this host."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _nodata_args(no_data):
@@ -102,16 +127,78 @@ def _nodata_args(no_data):
     return float(no_data), 1
 
 
-def fill(dem, no_data=None, eps=0.0):
-    """Priority-Flood fill (plain or epsilon); float64 copy returned."""
+def _fill_impl(dem, no_data, eps, want_fd=False, want_labels=False):
     lib = _load()
     z = np.array(dem, dtype=np.float64, copy=True, order="C")
     h, w = z.shape
+    fd = np.full((h, w), -1, np.int8) if want_fd else None
+    labels = np.full((h, w), -1, np.int64) if want_labels else None
     nd, has_nd = _nodata_args(no_data)
-    rc = lib.rn_fill(z, h, w, nd, has_nd, float(eps), None, None)
+    rc = lib.rn_fill(
+        z, h, w, nd, has_nd, float(eps),
+        fd.ctypes.data_as(ctypes.c_void_p) if want_fd else None,
+        labels.ctypes.data_as(ctypes.c_void_p) if want_labels else None)
     if rc != 0:
         raise RuntimeError(f"rn_fill failed ({rc})")
+    return z, fd, labels
+
+
+def fill(dem, no_data=None, eps=0.0):
+    """Priority-Flood fill (plain or epsilon); float64 copy returned."""
+    z, _, _ = _fill_impl(dem, no_data, eps)
     return z
+
+
+def fill_flowdirs(dem, no_data=None):
+    """(filled, flowdirs): directions assigned during the flood."""
+    z, fd, _ = _fill_impl(dem, no_data, 0.0, want_fd=True)
+    return z, fd
+
+
+def fill_watersheds(dem, no_data=None):
+    """(filled, labels): seed-index watershed labels."""
+    z, _, labels = _fill_impl(dem, no_data, 0.0, want_labels=True)
+    return z, labels
+
+
+def fill_tile(dem, no_data=None, global_edges=0):
+    """[P1] two-pass fill, consumer pass: Priority-Flood one tile with its
+    perimeter as the seed set (Barnes 2016, arxiv 1606.06204 §3).
+
+    Returns ``(filled, labels, edges)``: the tile filled relative to its
+    own perimeter (float64), int32 per-cell watershed ids (0 = ocean:
+    global edges and nodata-adjacent drains), and an ``(m, 3)`` float64
+    array of label-graph rows ``(label_a, label_b, spill_elevation)``.
+    ``global_edges``: bitmask of the tile sides on the DEM's border (1
+    top, 2 bottom, 4 left, 8 right)."""
+    lib = _load()
+    z = np.array(dem, dtype=np.float64, copy=True, order="C")
+    h, w = z.shape
+    labels = np.empty((h, w), np.int32)
+    nd, has_nd = _nodata_args(no_data)
+    cap = 8 * (h + w) + 1024
+    for _ in range(8):
+        ea = np.empty(cap, np.int32)
+        eb = np.empty(cap, np.int32)
+        ew = np.empty(cap, np.float64)
+        n_edges = ctypes.c_int64(0)
+        n_labels = ctypes.c_int32(0)
+        rc = lib.rn_fill_tile(z, h, w, nd, has_nd, int(global_edges),
+                              labels, ea, eb, ew, cap,
+                              ctypes.byref(n_edges),
+                              ctypes.byref(n_labels))
+        if rc == 0:
+            m = n_edges.value
+            edges = np.column_stack([ea[:m].astype(np.float64),
+                                     eb[:m].astype(np.float64), ew[:m]])
+            return z, labels, edges
+        if rc == 2:
+            # the edge buffer was too small: retry at the reported size
+            cap = int(n_edges.value) + 1024
+            z = np.array(dem, dtype=np.float64, copy=True, order="C")
+            continue
+        raise RuntimeError(f"rn_fill_tile failed ({rc})")
+    raise RuntimeError("rn_fill_tile: edge buffer kept overflowing")
 
 
 def d8_flowdirs(dem, no_data=None, cellsize=1.0, topology="D8"):
@@ -247,3 +334,25 @@ def flat_mask_and_labels(dem, flowdirs, no_data=None):
     """(flat_mask, labels) int32 rasters."""
     _, mask, labels = _flats_impl(dem, flowdirs, no_data, want_mask=True)
     return mask, labels
+
+
+def slope_radians(dem, no_data=None, zscale=1.0, cellsize=1.0):
+    """Horn 1981 slope in radians (float64)."""
+    lib = _load()
+    z = np.ascontiguousarray(dem, dtype=np.float64)
+    h, w = z.shape
+    out = np.empty((h, w), np.float64)
+    nd, has_nd = _nodata_args(no_data)
+    lib.rn_slope_radians(z, out, h, w, nd, has_nd, float(zscale),
+                         float(cellsize))
+    return out
+
+
+def twi(accum, slope, cellsize=1.0, min_slope=1e-6):
+    """ln(a / tan beta) with a = accumulation × cellsize (float64)."""
+    lib = _load()
+    acc = np.ascontiguousarray(accum, dtype=np.float64)
+    sl = np.ascontiguousarray(slope, dtype=np.float64)
+    out = np.empty(acc.shape, np.float64)
+    lib.rn_twi(acc, sl, out, acc.size, float(cellsize), float(min_slope))
+    return out

@@ -32,6 +32,20 @@ four orientations (:func:`accumulation_rotations`); its transposed sweeps
 read directions through :data:`PERM_TRANSPOSE`.  Float sums regroup from
 one orientation to the next, so it converges on equality over a whole
 rotation, never on a per-sweep flag.
+
+The general min-plus fixpoint of ``richdem_tpu.ops.sweeps``,
+
+    W(c) = min( W0(c),  max( floor(c),  min_d  W(n_d) + cost_d(c) ) )
+
+with per-direction ``costs`` and an off-grid ``boundary`` value, keeps the
+reference's names and ``(w, iters, converged)`` contract
+(:func:`minplus_fixpoint`, :func:`minplus_fixpoint_core`,
+:func:`minplus_sweep_once`, :func:`jacobi_step`) as plain tensor code: four
+directional relaxations along rows and columns, each a loop of exact
+per-edge steps, then one 8-neighbour Jacobi step.  Its fixpoint is unique,
+so it equals the reference's at ε = 0 bit for bit.  A fill-shaped call on
+the card (a scalar cost, ``boundary = -BIG``) runs the fill kernel's
+rotations (:func:`fill_fixpoint_core`), which reach the same fixpoint.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import torch.nn.functional as F
 
 from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import SWEEP_TILE
+from richdem_tpu_torch.ops.stencil import neighbor
 
 __all__ = ["BIG", "ZBIG", "DIST_MODES", "F_DATA", "F_NOFLOW", "F_INFLAT",
            "PERM_TRANSPOSE", "fill_sweep_plain", "fill_fixpoint_core",
@@ -51,7 +66,8 @@ __all__ = ["BIG", "ZBIG", "DIST_MODES", "F_DATA", "F_NOFLOW", "F_INFLAT",
            "fill_scan_fixpoint_core",
            "seam_columns", "allowed", "dist_sweep_plain", "dist_context",
            "dist_fixpoint_core", "accumulation_trios", "pad_row",
-           "accumulation_rotations"]
+           "accumulation_rotations", "minplus_fixpoint",
+           "minplus_fixpoint_core", "minplus_sweep_once", "jacobi_step"]
 
 #: Finite stand-in for infinity (fits comfortably in float32).
 BIG = 1.0e30
@@ -436,3 +452,102 @@ def accumulation_rotations(w, row_sweep, col_sweep, max_rotations):
         if converged:
             break
     return acc, rotations, converged
+
+
+# -- the general min-plus fixpoint -------------------------------------------
+
+
+def _axis_sweep(w, floor, cost_in, axis, reverse, boundary):
+    """One directional relaxation along ``axis`` (-2: rows top to bottom,
+    -1: columns left to right; ``reverse`` the other way):
+    ``w_i = min(w_i, max(floor_i, w_{i-1} + cost_in_i))`` from ``boundary``
+    off the grid.  ``cost_in[c]`` is the cost of the edge into ``c`` from
+    its predecessor along the sweep."""
+    if axis in (-1, w.dim() - 1):
+        w, floor, cost_in = (a.transpose(-1, -2) for a in (w, floor,
+                                                            cost_in))
+    n = w.shape[-2]
+    out = torch.empty_like(w)
+    prev = boundary.expand(w.shape[-1])
+    for i in (range(n - 1, -1, -1) if reverse else range(n)):
+        prev = torch.minimum(w[..., i, :],
+                             torch.maximum(floor[..., i, :],
+                                           prev + cost_in[..., i, :]))
+        out[..., i, :] = prev
+    if axis in (-1, w.dim() - 1):
+        out = out.transpose(-1, -2)
+    return out.contiguous()
+
+
+def jacobi_step(w, floor, costs, boundary):
+    """One full 8-neighbour Jacobi relaxation (carries diagonal edges).
+
+    ``costs``: (8, H, W) edge costs into each cell from direction d = k+1;
+    ``boundary``: the value read off the grid."""
+    best = torch.full_like(w, BIG)
+    for d in range(1, 9):
+        cand = neighbor(w, d, float(boundary)) + costs[d - 1]
+        best = torch.minimum(best, cand)
+    return torch.minimum(w, torch.maximum(floor, best))
+
+
+def minplus_sweep_once(w, floor, costs, boundary):
+    """One iteration: W→E, E→W, N→S, S→N relaxations + one Jacobi step.
+
+    ``costs``: (8, H, W); index k is the cost into a cell from its
+    direction-(k+1) neighbour (1 = W, 3 = N, 5 = E, 7 = S)."""
+    bnd = torch.as_tensor(boundary, dtype=w.dtype, device=w.device)
+    w = _axis_sweep(w, floor, costs[0], -1, False, bnd)  # from W, eastward
+    w = _axis_sweep(w, floor, costs[4], -1, True, bnd)   # from E, westward
+    w = _axis_sweep(w, floor, costs[2], -2, False, bnd)  # from N, southward
+    w = _axis_sweep(w, floor, costs[6], -2, True, bnd)   # from S, northward
+    return jacobi_step(w, floor, costs, bnd)
+
+
+def _is_scalar(x):
+    return x.dim() == 0 if torch.is_tensor(x) else np.ndim(x) == 0
+
+
+def minplus_fixpoint_core(w0, floor, costs, boundary, max_iters=256,
+                          check_every=1):
+    """Iterate :func:`minplus_sweep_once` from ``w0`` until an iteration
+    changes nothing; returns ``(w, iters, converged)`` without raising.
+
+    ``floor`` and ``costs`` may be scalars (a uniform edge cost, e.g. the
+    fill's ε) or rasters, ``costs`` (8, H, W); ``boundary``: the off-grid
+    value.  Monotone: ``w`` only decreases, so exact-equality convergence
+    detection is sound.  On the card a scalar cost with ``boundary =
+    -BIG`` runs :func:`fill_fixpoint_core` over the fill kernel (``iters``
+    then counts its rotations of four sweeps)."""
+    w0 = torch.as_tensor(w0)
+    dt, dev = w0.dtype, w0.device
+    if (w0.is_cuda and _is_scalar(costs) and w0.dim() == 2
+            and np.float32(float(boundary)) == np.float32(-BIG)
+            and dt == torch.float32):
+        from richdem_tpu_torch.ops.fill import fill_sweep
+
+        fl = torch.as_tensor(floor, dtype=dt, device=dev)
+        fl = fl.expand(w0.shape).contiguous()
+        return fill_fixpoint_core(w0, fl, float(costs), max_iters,
+                                  fill_sweep)
+    floor = torch.as_tensor(floor, dtype=dt, device=dev).expand(w0.shape)
+    costs = torch.as_tensor(costs, dtype=dt, device=dev).expand(
+        (8,) + tuple(w0.shape))
+    w, iters, done = w0, 0, False
+    while not done and iters < max_iters:
+        new = w
+        for _ in range(check_every):
+            new = minplus_sweep_once(new, floor, costs, boundary)
+        done = torch.equal(new, w)
+        w = new
+        iters += check_every
+    return w, iters, done
+
+
+def minplus_fixpoint(w0, floor, costs, boundary, max_iters=256,
+                     check_every=1):
+    """Iterate sweeps to convergence; returns ``(w, iters, converged)``
+    (:func:`minplus_fixpoint_core`; the reference's jitted entry)."""
+    return minplus_fixpoint_core(w0, floor, costs, boundary,
+                                 max_iters=max_iters,
+                                 check_every=check_every)

@@ -334,7 +334,8 @@ def test_config_run_mfd():
 
 def test_config_mesh_not_ported():
     dem = synth.depression_dem(16, seed=7, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6: "
+                       r"parallel/halo\.py, mesh\.py and sharded\.py"):
         PipelineConfig(mesh=(2, 4)).run(dem, device="cpu")
 
 

@@ -6,10 +6,12 @@ The port imports nothing of ``richdem_tpu``, so it carries copies of
 DEM generators of the tests and the on-card gates), ``native/`` (the C++
 engine; its answers are held against the original's in
 tests/test_torch_isolation.py and, on the card, in ``chip_smoke.py``), and,
-for the API, ``provenance.py``, ``checkpoint.py``, ``io/``,
-``oracle/flowdirs.py``, ``oracle/orlandini.py`` and
-``parallel/layout.py``, which are the originals with the package's module
-paths renamed (checked line for line), and ``version.py`` (the same
+for the API and the two-pass programs, ``provenance.py``,
+``checkpoint.py``, ``io/``, the ``oracle/`` modules (``flowdirs``,
+``orlandini``, ``fill``, ``fill_variants``, ``flats``, ``accum``,
+``terrain``, ``breach``), ``parallel/layout.py`` and
+``parallel/labelgraph.py``, which are the originals with the package's
+module paths renamed (checked line for line), and ``version.py`` (the same
 version).  The tables must be equal, the generators bitwise equal, and a
 raster written by one package must read back bitwise in the other.
 """
@@ -94,7 +96,10 @@ def test_nodata_holes_bitwise(seed):
 VERBATIM = ("provenance.py", "checkpoint.py", "io/__init__.py",
             "io/npyio.py", "io/asciigrid.py", "io/geotiff.py",
             "oracle/flowdirs.py", "oracle/orlandini.py",
-            "parallel/layout.py")
+            "parallel/layout.py", "oracle/fill.py",
+            "oracle/fill_variants.py", "oracle/flats.py", "oracle/accum.py",
+            "oracle/terrain.py", "oracle/breach.py",
+            "parallel/labelgraph.py")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -208,3 +213,31 @@ def test_layout_across_packages(tmp_path):
                                   (8, 32))
     assert tlayout.read_layout(lay) == jlayout.read_layout(lay)
     np.testing.assert_array_equal(tlayout.merge_by_layout(lay).np(), dem)
+
+
+def test_oracle_copies_answer_alike():
+    """The copied oracles give the originals' answers (fill, ε-fill, flat
+    resolution, accumulation, a terrain attribute, breaching)."""
+    from richdem_tpu import oracle as jo
+    from richdem_tpu_torch.oracle import accum, breach, fill, flats, terrain
+
+    dem = synth.with_nodata_holes(synth.depression_dem(20, 23, seed=4),
+                                  no_data=-9999.0, seed=4)
+    f = fill.priority_flood_epsilon(dem, no_data=-9999.0, eps=1e-3)
+    np.testing.assert_array_equal(
+        f, jo.priority_flood_epsilon(dem, no_data=-9999.0, eps=1e-3))
+    np.testing.assert_array_equal(
+        fill.priority_flood_fill(dem, no_data=-9999.0),
+        jo.priority_flood_fill(dem, no_data=-9999.0))
+    fd = jo.d8_flowdirs(fill.priority_flood_fill(dem, no_data=-9999.0),
+                        no_data=-9999.0)
+    np.testing.assert_array_equal(flats.resolve_flats(dem, fd, -9999.0),
+                                  jo.resolve_flats(dem, fd, -9999.0))
+    np.testing.assert_array_equal(accum.d8_accumulation(fd),
+                                  jo.d8_accumulation(fd))
+    np.testing.assert_array_equal(
+        terrain.terrain_attribute(dem, "curvature", no_data=-9999.0),
+        jo.terrain_attribute(dem, "curvature", no_data=-9999.0))
+    np.testing.assert_array_equal(
+        breach.breach_depressions(dem, no_data=-9999.0, mode="Complete"),
+        jo.breach_depressions(dem, no_data=-9999.0, mode="Complete"))

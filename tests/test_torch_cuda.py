@@ -33,7 +33,11 @@ are the Rho8 codes and the terrain attributes on the same tile
 D∞ and multi-flow sweeps, whose tiles trade edge values, equal their plain
 versions and the plain sweep over whole rows at widths from 1 to 8300,
 on grids wider than the card's resident blocks, and through a whole Quinn
-fixpoint at 512².
+fixpoint at 512².  The two-pass programs at 1024² (tile 256) run the
+fill, D8, distance, resolve and accumulation kernels and equal the
+in-core results and the native consumer bitwise, as does the ε Schwarz
+fill the in-core ε-fill from BIG; the min-plus names run the fill kernel
+for a fill-shaped call and equal the CPU's plain code otherwise.
 """
 
 import numpy as np
@@ -941,3 +945,124 @@ def test_quinn_fixpoint_matches_whole_rows(dev):
     ref, rp, dp = mfd.mfd_accumulation_info(planes, ones, sweep=whole)
     assert dk and dp and rk == rp
     assert torch.equal(got, ref)
+
+
+# -- the two-pass programs and the min-plus names -------------------------
+
+TWOPASS_EDGE, TWOPASS_TILE = 1024, 256
+TWOPASS_KERNELS = (fill.FILL_SWEEP, flowdirs.D8, flats.DIST_SWEEP,
+                   successor.RESOLVE_SWEEP, accum.ACCUM_SWEEP)
+
+
+@pytest.fixture(scope="module")
+def twopass_disk(dev, tmp_path_factory):
+    """A 1024² Perlin DEM with nodata holes on disk, and its in-core fill
+    on the card."""
+    d = tmp_path_factory.mktemp("twopass")
+    z = tsynth.with_nodata_holes(
+        tsynth.perlin_dem(TWOPASS_EDGE, TWOPASS_EDGE, seed=3, device=dev),
+        seed=3, n_holes=6)
+    np.save(d / "dem.npy", z.cpu().numpy())
+    return d, z, fill.fill_depressions(z, no_data=-9999.0)
+
+
+def test_twopass_fill_on_the_card(dev, twopass_disk):
+    """Two data passes of the device consumer at 1024², tile 256: bitwise
+    the in-core fill and the native consumer's, through the path's
+    kernels."""
+    from richdem_tpu_torch.parallel.outofcore import out_of_core_fill
+
+    d, _, want = twopass_disk
+    before = [k.launches for k in TWOPASS_KERNELS]
+    stats = {}
+    got = np.load(out_of_core_fill(str(d / "dem.npy"), str(d / "f.npy"),
+                                   tile=TWOPASS_TILE, no_data=-9999.0,
+                                   stats=stats))
+    assert stats["consumer"] == "device" and stats["data_passes"] == 2
+    assert all(k.launches > b for k, b in zip(TWOPASS_KERNELS[:4],
+                                              before[:4]))
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    native = np.load(out_of_core_fill(
+        str(d / "dem.npy"), str(d / "n.npy"), tile=TWOPASS_TILE,
+        no_data=-9999.0, consumer="native"))
+    np.testing.assert_array_equal(native, got)
+
+
+@pytest.mark.parametrize("method", ["twopass", "schwarz"])
+def test_twopass_accum_on_the_card(dev, twopass_disk, method):
+    """D8 accumulation of the fill's codes at 1024², tile 256: bitwise the
+    in-core accumulation (every sum an integer below 2²⁴)."""
+    from richdem_tpu_torch.parallel.outofcore import out_of_core_accum_d8
+
+    d, _, filled = twopass_disk
+    fd = flowdirs.d8_flowdirs(filled, no_data=-9999.0)
+    np.save(d / "fd.npy", fd.cpu().numpy())
+    want = accum.d8_accumulation(fd, weights=torch.where(fd < 0, 0.0, 1.0))
+    before = accum.ACCUM_SWEEP.launches
+    stats = {}
+    got = np.load(out_of_core_accum_d8(
+        str(d / "fd.npy"), out_path=str(d / f"a_{method}.npy"),
+        tile=TWOPASS_TILE, method=method, stats=stats))
+    assert accum.ACCUM_SWEEP.launches > before
+    if method == "twopass":
+        assert stats["data_passes"] == 2
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+def test_schwarz_epsilon_fill_on_the_card(dev, twopass_disk):
+    """ε = 1e-3 by Schwarz sweeps at 1024², tile 256: bitwise the in-core
+    folded ε-fill from BIG (both are the greatest fixpoint below BIG)."""
+    from richdem_tpu_torch.parallel.outofcore import out_of_core_fill
+
+    d, z, _ = twopass_disk
+    got = np.load(out_of_core_fill(str(d / "dem.npy"), str(d / "e.npy"),
+                                   tile=TWOPASS_TILE, eps=1e-3,
+                                   no_data=-9999.0))
+    want, _, done = fill.fill_depressions_info(
+        z, z == -9999.0, eps=1e-3, w0=torch.full_like(z, sweeps.BIG))
+    assert done
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e-3])
+def test_minplus_fill_shape_runs_the_fill_kernel(dev, eps):
+    """A scalar cost with a draining boundary on the card runs the fill
+    kernel and reaches the plain min-plus fixpoint: bitwise at ε = 0,
+    within 1e-4 at ε = 1e-3."""
+    z, mask = _dem((300, 1025), dev, seed=4)
+    neg = torch.tensor(-sweeps.BIG, device=dev)
+    floor = torch.where(mask, neg, z)
+    w0 = torch.where(mask, neg, torch.full_like(z, sweeps.BIG))
+    before = fill.FILL_SWEEP.launches
+    got, _, done = sweeps.minplus_fixpoint(w0, floor, eps, -sweeps.BIG)
+    assert done and fill.FILL_SWEEP.launches > before
+    ref, _, done = sweeps.minplus_fixpoint(w0.cpu(), floor.cpu(), eps,
+                                           -sweeps.BIG)
+    assert done
+    if eps == 0.0:
+        assert torch.equal(got.cpu(), ref)
+    else:
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+
+
+def test_minplus_general_costs_on_the_card(dev):
+    """Per-direction costs and a non-draining boundary run the plain
+    min-plus code on the card: bitwise the CPU's, and so are one sweep
+    and one Jacobi step."""
+    rng = np.random.default_rng(6)
+    big = sweeps.BIG
+    costs = torch.from_numpy(np.where(rng.random((8, 60, 75)) < 0.2, big,
+                                      1.0).astype(np.float32))
+    seeds = torch.from_numpy(np.where(rng.random((60, 75)) < 0.05, 0.0,
+                                      big).astype(np.float32))
+    floor = torch.full_like(seeds, -big)
+    got = sweeps.minplus_fixpoint_core(seeds.to(dev), -big, costs.to(dev),
+                                       big)
+    ref = sweeps.minplus_fixpoint_core(seeds, -big, costs, big)
+    assert got[1:] == ref[1:] and ref[2]
+    assert torch.equal(got[0].cpu(), ref[0])
+    for name in ("minplus_sweep_once", "jacobi_step"):
+        fn = getattr(sweeps, name)
+        assert torch.equal(
+            fn(seeds.to(dev), floor.to(dev), costs.to(dev), big).cpu(),
+            fn(seeds, floor, costs, big))

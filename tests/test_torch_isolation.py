@@ -23,7 +23,8 @@ import richdem_tpu_torch as rt
 from richdem_tpu_torch import _build, convert
 from richdem_tpu_torch import synth as tsynth
 from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs, mfd,
-                                   orlandini, successor, terrain)
+                                   orlandini, stencil, successor, terrain)
+from richdem_tpu_torch.parallel import consumer, outofcore
 
 torch.set_num_threads(1)
 
@@ -94,6 +95,24 @@ if shutil.which("g++"):
                        rtol=2e-5)
     assert os.path.exists(native._LIB)
     print("native ok")
+assert {"synth", "io", "topology"} <= set(rt.__all__)
+assert rt.synth.cone_dem(5, device="cpu").shape == (5, 5)
+assert callable(rt.io.load) and int(rt.topology.NO_FLOW) == 0
+from richdem_tpu_torch import debug
+from richdem_tpu_torch.oracle import accum, breach, fill, fill_variants
+from richdem_tpu_torch.oracle import flats, terrain
+from richdem_tpu_torch.parallel import (out_of_core_accum_d8,
+                                        out_of_core_fill)
+np.save(os.path.join(tmp, "dem.npy"), dem)
+timer = debug.PhaseTimer()
+ooc = np.load(out_of_core_fill(os.path.join(tmp, "dem.npy"), tile=20,
+                               consumer="device", device="cpu",
+                               timer=timer))
+assert np.array_equal(ooc, filled.numpy()) and "pass 1" in timer.times
+np.save(os.path.join(tmp, "fd.npy"), fd.numpy())
+acc = np.load(out_of_core_accum_d8(os.path.join(tmp, "fd.npy"), tile=20,
+                                   device="cpu"))
+assert acc.max() > 10
 reference = os.path.join(sys.argv[1], "richdem_tpu") + os.sep
 loaded = [m for m, mod in list(sys.modules.items()) if mod is not None]
 assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
@@ -110,8 +129,10 @@ def test_port_runs_alone_without_jax(tmp_path):
     pipeline, flat resolution, a terrain attribute, D∞ and Quinn
     accumulation, the D8 methods, Rho8, the scan fill engine through the
     API, Orlandini, ``PipelineConfig``, the CLI with its phase cache and
-    the IO and layout copies, and (where g++ exists) the port's own native
-    engine with breaching, which builds into the copy."""
+    the IO and layout copies, ``rt.synth``/``rt.io``/``rt.topology``, the
+    debug module, the oracle copies, the two-pass fill and accumulation on
+    the CPU, and (where g++ exists) the port's own native engine with
+    breaching, which builds into the copy."""
     shutil.copytree(os.path.join(REPO, "richdem_tpu_torch"),
                     tmp_path / "richdem_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
@@ -144,6 +165,25 @@ def test_no_port_file_names_the_reference_package():
                 assert "from richdem_tpu " not in code, (path, ln)
                 assert "from richdem_tpu." not in code, (path, ln)
                 assert "import jax" not in code, (path, ln)
+
+
+def test_package_exposes_the_reference_names():
+    """Every name of the JAX package's ``__all__`` is the port's too, and
+    ``synth``, ``io`` and ``topology`` are the port's own modules."""
+    import richdem_tpu
+
+    assert set(richdem_tpu.__all__) <= set(rt.__all__)
+    for name in ("synth", "io", "topology"):
+        mod = getattr(rt, name)
+        assert mod.__name__ == f"richdem_tpu_torch.{name}"
+
+
+def _npy(arr):
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(), "r.npy")
+    np.save(path, arr)
+    return path
 
 
 def _entry_points():
@@ -183,6 +223,18 @@ def _entry_points():
         "orlandini_flowdirs_device":
             lambda: orlandini.orlandini_flowdirs_device(dem),
         "PipelineConfig.run": lambda: rt.PipelineConfig().run(dem)["accum"],
+        "cone_dem": lambda: tsynth.cone_dem(12, 14),
+        "depression_dem": lambda: tsynth.depression_dem(12, 14),
+        "perlin_dem_rows": lambda: tsynth.perlin_dem_rows(12, 14, 2, 5),
+        "with_nodata_holes": lambda: tsynth.with_nodata_holes(dem),
+        "neighbor_distances": lambda: stencil.neighbor_distances(),
+        "fill_tile_consumer":
+            lambda: consumer.fill_tile_consumer(dem)["w_loc"],
+        "accum_tile_consumer": lambda: consumer.accum_tile_consumer(fd)[0],
+        "out_of_core_fill": lambda: torch.from_numpy(np.load(
+            outofcore.out_of_core_fill(_npy(dem)))).cuda(),
+        "out_of_core_accum_d8": lambda: torch.from_numpy(np.load(
+            outofcore.out_of_core_accum_d8(_npy(fd)))).cuda(),
     }
 
 
