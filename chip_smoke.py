@@ -48,7 +48,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    codes' accumulation conserves mass exactly;
 7. config 2 (``BASELINE.json``; ``bench.py``'s ``fill_flats``) at 10240²:
    ``auto_epsilon`` → ε-fill → D8 → ``resolve_flats``; converged, its
-   kernels launched; three timed steps and the peak memory;
+   kernels launched, the ε-fill (from the multigrid start) bitwise the
+   fill from ``w0 = BIG``; three timed steps and the peak memory;
 8. terrain path — ``terrain_attribute`` slope (radians) and aspect at
    10240², the terrain kernel launched;
 9. config 4 (``BASELINE.json``; ``bench.py``'s ``dinf_twi`` and
@@ -99,16 +100,33 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    in two passes, bitwise the in-core accumulation below 2²⁴ and within
    ``TWOPASS_ACC_RTOL`` above; the native C++ consumer bitwise the device
    consumer at 2048² (tile 512); the ε = 1e-3 Schwarz fill at 4096² (tile
-   1024) bitwise the in-core folded ε-fill from ``w0 = BIG``, with the
+   1024) bitwise the in-core folded ε-fill from ``w0 = BIG`` and the
    in-core ``fill_epsilon`` (which starts from the multigrid upper bound
-   at this size) at or below it within ``ENGINES_ATOL``; and the card's
-   peak at 10240² within 10 % of the peak at 4096² (tile 2048, not
-   cached).
+   at this size); and the card's peak at 10240² within 10 % of the peak
+   at 4096² (tile 2048, not cached);
+15. sharded — the sharded mesh on the one card, a 2×2 mesh whose four
+   positions are all ``cuda:0``: ``sharded_pipeline`` (ε = 1e-3) of the
+   10240² Perlin DEM, its fill bitwise the in-core fill from ``w0 = BIG``
+   and ``fill_epsilon``, codes and slope bitwise, the accumulation bitwise
+   below 2²⁴ and within ``TWOPASS_ACC_RTOL`` above; its outer Schwarz
+   iterations, launches, three timed steps beside the main path's and the
+   peak; the two-pass fill and accumulation on the mesh (two data passes
+   each, bitwise the Schwarz fill at ε = 0 and the Schwarz accumulation);
+   Quinn accumulation at ``SHARDED_MFD_EDGE``² within rtol 2e-5, atol 1e-4
+   of the in-core one, mass conserved; ``dryrun_multichip(4)`` (an uneven
+   509×1019 DEM, pad and crop); the pipeline through a one-rank NCCL group
+   at 2048², bitwise the in-process mesh; then the seven kernels of these
+   paths against their plain versions and timed beside their bounds at the
+   shape their path gives them (an extended block for the fill, D8 and
+   terrain, a shard for the accumulation, distance, resolve and
+   multi-flow sweeps).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the two-pass programs are two paths (``twopass_fill``,
 ``twopass_accum``), whose launches and tile-width times each of their
-kernels' records carries under ``twopass``.  The line before the last is
+kernels' records carries under ``twopass``, and the sharded phase three
+(``sharded``, ``sharded_twopass``, ``sharded_mfd``), whose launches and
+block-shape times go under ``sharded``.  The line before the last is
 the per-kernel JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  The script imports no JAX and
 nothing of the JAX package.
@@ -150,6 +168,15 @@ SCHWARZ = (4096, 1024, 1e-3)
 #: the two-pass memory check: the peak at MAIN² within this share of the
 #: peak at SCHWARZ[0]² (same tile, tiles not cached on the card)
 MEMORY_SHARE = 0.10
+#: the sharded phase: its mesh (every position on the one card), the ε of
+#: its pipeline (the reference's default), the edge of its multi-flow
+#: accumulation and of its run through a one-rank NCCL group.  Quinn is
+#: cut to 4096²: at 10240² its block-Schwarz took 139 outer iterations
+#: (11 617 local rotations, 299 s; H100 80GB HBM3, 700.00 W)
+SHARDED_MESH = (2, 2)
+SHARDED_EPS = 1e-3
+SHARDED_MFD_EDGE = 4096
+SHARDED_NCCL_EDGE = 2048
 #: the kernels of the two-pass path: the local fill and the ring-pinned
 #: apply, D8 and flat resolution of the labels, the drain labels and the
 #: accumulation's links, and the [P2] local solves
@@ -1131,7 +1158,7 @@ def phase_main(dev, card, kernels):
         f"{n / best:.4e} cells/s; peak allocated {peak_gib:.3f} GiB "
         f"(warm-up step, DEM included) on [{card}]; mass {mass:.1f} of "
         f"{n}; launches {launches}")
-    return out, launches, z
+    return out, launches, z, best
 
 
 def held_to_native(codes, acc, what):
@@ -1232,6 +1259,14 @@ def phase_config2(dev, card, kernels):
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     if not bool((filled >= z).all()):
         raise AssertionError("config 2: filled surface below the DEM")
+    from richdem_tpu_torch.ops import fill, sweeps
+    big, big_iters, done = fill.fill_depressions_info(
+        z, eps=eps, w0=torch.full_like(z, sweeps.BIG))
+    if not (done and torch.equal(filled, big)):
+        raise AssertionError(
+            f"config 2: the fill from the multigrid start is not the fill "
+            f"from BIG (converged {done}, max |diff| {max_abs(filled, big)})")
+    del big
     noflow = (int((fd == 0).sum()), int((resolved == 0).sum()),
               int((resolved[1:-1, 1:-1] == 0).sum()))
     ev_secs, host_secs, last = timed_steps(config2_step, z, eps)
@@ -1239,7 +1274,8 @@ def phase_config2(dev, card, kernels):
         raise AssertionError("config 2 is not deterministic")
     n = MAIN * MAIN
     log("config2", f"{MAIN}x{MAIN} Perlin seed 0: auto_epsilon {eps!r}; "
-        f"fill rotations {fiters}, flats rotations {rotations}; NO_FLOW "
+        f"fill rotations {fiters} (bitwise the fill from BIG, "
+        f"{big_iters} rotations), flats rotations {rotations}; NO_FLOW "
         f"{noflow[0]} before resolve_flats, {noflow[1]} after "
         f"({noflow[2]} of them off the border); {STEPS} "
         f"steps after one warm-up: {ev_secs} s (CUDA events), {host_secs} s "
@@ -1927,24 +1963,22 @@ def phase_scan_timing(dev, card, dem, mask, eps, err, times):
         f"bitwise to plain; its cluster: {SHAPES['fill_scan']}")
 
 
-def twopass_tile_kernels(dem, mask, err, card, times):
-    """The five kernels of the two-pass path on the first TWOPASS_TILE²
-    tile of the two-pass DEM, as the consumers call them: each against its
-    plain version (bitwise), then one call of each timed beside its
-    bound at that shape (``times[name]``)."""
+def block_kernels(names, z, m, eps, err, card, times, phase, what):
+    """Kernels ``names`` on one block ``z`` (mask ``m``) as the two-pass
+    consumers and the sharded ops call them: each against its plain
+    version (bitwise; terrain's atan to ATAN_RTOL), then one call of each
+    timed beside its bound at that shape (``times[name]``)."""
     import torch
-    from richdem_tpu_torch.ops import (accum, fill, flats, flowdirs,
-                                       successor, sweeps)
+    from richdem_tpu_torch.ops import (accum, fill, flats, flowdirs, mfd,
+                                       successor, sweeps, terrain)
 
-    t = TWOPASS_TILE
-    dev = mask.device
-    z = torch.from_numpy(np.ascontiguousarray(dem[:t, :t])).to(dev)
-    m = mask[:t, :t].contiguous()
+    h, w = z.shape
+    dev = z.device
     neg = torch.tensor(-sweeps.BIG, device=dev)
     floor = torch.where(m, neg, z).contiguous()
     w0 = torch.where(m, neg, torch.full_like(z, sweeps.BIG)).contiguous()
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    filled = fill.fill_depressions(z, no_data=ND)
+    filled = fill.fill_depressions_info(z, m)[0]
     fd = flowdirs.d8_core(filled, m)
     ff = flats.flat_fields(filled, fd, m)
     zed, fl = ff["zed"].contiguous(), ff["flags"].contiguous()
@@ -1953,13 +1987,13 @@ def twopass_tile_kernels(dem, mask, err, card, times):
     fd_eff = successor.effective_codes(fd)
     pinned = fd_eff == 0
     code = successor.pack_codes(fd_eff, pinned)
-    own = torch.arange(t * t, dtype=torch.int32, device=dev).view(t, t)
+    own = torch.arange(h * w, dtype=torch.int32, device=dev).view(h, w)
     v0 = torch.where(pinned, own, -1).to(torch.int32).contiguous()
     ones = torch.where(fd < 0, 0.0, torch.ones_like(z)).contiguous()
     calls = {
         "fill_sweep": (
-            lambda: fill.fill_sweep(w0, floor, 0.0, 0.0, False, flag),
-            lambda: sweeps.fill_sweep_plain(w0, floor, 0.0, 0.0, False,
+            lambda: fill.fill_sweep(w0, floor, eps, eps, False, flag),
+            lambda: sweeps.fill_sweep_plain(w0, floor, eps, eps, False,
                                             flag)),
         "d8": (lambda: flowdirs.d8_core(filled, m),
                lambda: flowdirs.d8_plain(filled, m)),
@@ -1974,23 +2008,36 @@ def twopass_tile_kernels(dem, mask, err, card, times):
         "accum_sweep": (
             lambda: accum.accum_sweep(ones, ones, fd, False),
             lambda: accum.accum_sweep_plain(ones, ones, fd, False)),
+        "terrain": (
+            lambda: terrain.terrain_fused(filled, m, 1.0, 1.0,
+                                          "slope_radians"),
+            lambda: terrain.terrain_plain(filled, m, 1.0, 1.0,
+                                          "slope_radians")),
     }
+    if "mfd_sweep" in names:
+        planes = flowdirs.flow_proportions(filled, "Quinn").permute(
+            2, 0, 1).contiguous()
+        calls["mfd_sweep"] = (
+            lambda: mfd.mfd_sweep(ones, ones, planes, False, mfd.MFD_DEPTH),
+            lambda: mfd.mfd_sweep_plain(ones, ones, planes, False,
+                                        mfd.MFD_DEPTH))
     parts = []
-    for name in TWOPASS_KERNELS:
+    for name in names:
         kern, plain = calls[name]
         got = kern()
         ms = cuda_ms(kern, reps=5)
         out = {}
         plain_ms = cuda_ms(lambda: out.setdefault("plain", plain()))
-        bitwise(name, ((got, out["plain"]),), err, f"{t}x{t} two-pass tile")
-        bound, bound_by = bound_ms(name, t * t)
+        bitwise(name, ((got, out["plain"]),), err, f"{h}x{w} {what}",
+                rtol=ATAN_RTOL if name == "terrain" else 0.0)
+        bound, bound_by = bound_ms(name, h * w)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                            bound_by=bound_by)
         parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f} ms; bound "
                      f"{bound:.5f} ms, {bound_by}, {100 * bound / ms:.1f} "
                      "%)")
-    log("twopass", f"the path's kernels on a {t}x{t} tile, each bitwise "
-        f"its plain version, one call each: " + "; ".join(parts)
+    log(phase, f"the path's kernels on a {h}x{w} {what}, each against its "
+        f"plain version, one call each: " + "; ".join(parts)
         + f"; on [{card}]")
 
 
@@ -2001,8 +2048,8 @@ def phase_twopass(dev, card, kernels, err):
     of its codes against the in-core accumulation, each in exactly two
     data passes; the native consumer bitwise the device consumer at
     TWOPASS_CHECK; the ε Schwarz fill bitwise the in-core folded ε-fill
-    from BIG at SCHWARZ, and the multigrid-started ε-fill at or below it
-    within ENGINES_ATOL; the card's peak at MAIN² within MEMORY_SHARE of the peak at
+    from BIG at SCHWARZ, and bitwise the multigrid-started ε-fill; the
+    card's peak at MAIN² within MEMORY_SHARE of the peak at
     SCHWARZ[0]².  Returns the launch counts of each program and the
     kernels' times at the tile width."""
     import tempfile
@@ -2038,7 +2085,11 @@ def phase_twopass(dev, card, kernels, err):
 
         dem, mask = holed_dem(MAIN, 0, dev)
         np.save(path("dem.npy"), dem)
-        twopass_tile_kernels(dem, mask, err, card, times)
+        t = TWOPASS_TILE
+        block_kernels(TWOPASS_KERNELS,
+                      torch.from_numpy(np.ascontiguousarray(
+                          dem[:t, :t])).to(dev), mask[:t, :t].contiguous(),
+                      0.0, err, card, times, "twopass", "two-pass tile")
         z = torch.from_numpy(dem).to(dev)
         want = fill.fill_depressions(z, no_data=ND).cpu().numpy()
         del z
@@ -2071,20 +2122,11 @@ def phase_twopass(dev, card, kernels, err):
         acc = np.load(path("acc.npy"))
         if stats2["data_passes"] != 2:
             raise AssertionError(f"twopass accumulation: {stats2}")
-        exact = acc_want < 2.0 ** 24
-        held("accumulation", acc[exact], acc_want[exact],
-             f"the {MAIN}x{MAIN} accumulation below 2^24")
-        rel = 0.0
-        if not exact.all():
-            big = ~exact
-            rel = float((np.abs(acc[big].astype(np.float64) - acc_want[big])
-                         / acc_want[big]).max())
-            if not rel <= TWOPASS_ACC_RTOL:
-                raise AssertionError(f"twopass accumulation: relative "
-                                     f"difference {rel} above 2^24")
-        n_big = int((~exact).sum())
+        n_big, rel = held_accumulation(
+            torch.from_numpy(acc), torch.from_numpy(acc_want),
+            f"twopass {MAIN}x{MAIN}")
         acc_max = float(acc_want.max())
-        del acc, acc_want, exact
+        del acc, acc_want
 
         # the native consumer against the device consumer
         edge, ctile = TWOPASS_CHECK
@@ -2127,7 +2169,7 @@ def phase_twopass(dev, card, kernels, err):
                                  engine="folded").cpu().numpy()
         below = int((warm < sch).sum())
         warm_diff = float(np.abs(warm.astype(np.float64) - sch).max())
-        if not (bool((warm <= sch).all()) and warm_diff <= ENGINES_ATOL):
+        if below or warm_diff != 0.0:
             raise AssertionError(f"twopass: the in-core eps-fill from the "
                                  f"multigrid start is off the Schwarz fill "
                                  f"by {warm_diff} ({below} cells below)")
@@ -2157,16 +2199,282 @@ def phase_twopass(dev, card, kernels, err):
     log("twopass", f"native consumer bitwise the device consumer at "
         f"{TWOPASS_CHECK[0]}^2, tile {TWOPASS_CHECK[1]}; eps={eps} Schwarz "
         f"fill at {edge}^2, tile {stile}: {st['data_passes']} passes in "
-        f"{sch_s:.3f} s, bitwise the in-core folded eps-fill from BIG; the "
-        f"in-core fill_epsilon (its multigrid start) lies below it at "
-        f"{below} cells, by at most {warm_diff!r} (gate {ENGINES_ATOL}); "
-        f"peak "
+        f"{sch_s:.3f} s, bitwise the in-core folded eps-fill from BIG and "
+        f"the in-core fill_epsilon from its multigrid start ({below} cells "
+        f"below, max |diff| {warm_diff!r}); peak "
         f"allocated above the start {fill_peak / 2**20:.1f} MiB at "
         f"{MAIN}^2 against {mid_peak / 2**20:.1f} MiB at {edge}^2 (tile "
         f"{tile}, not cached; gate {100 * MEMORY_SHARE:.0f} %); the path's "
         f"launches by kernel {path_kernels}; on [{card}]")
     return {"twopass_fill": fill_launches,
             "twopass_accum": acc_launches}, times
+
+
+def same(a, b):
+    """Bitwise equal, NaN where the other has NaN."""
+    import torch
+
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def dryrun_multichip(n_devices):
+    """Shard the full pipeline over an ``n_devices``-position mesh, every
+    position on the card, and run one step on an uneven depression DEM,
+    so that the pad-and-crop path runs (the counterpart of
+    ``__graft_entry__.dryrun_multichip``): the right shape, a non-empty
+    accumulation, and every output bitwise the in-core ops.  Returns the
+    shape."""
+    import torch
+    from richdem_tpu_torch import synth_np
+    from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps, terrain
+    from richdem_tpu_torch.parallel import make_mesh, sharded_pipeline
+    from richdem_tpu_torch.parallel.mesh import best_factorization
+
+    dev = torch.device("cuda", 0)
+    ny, nx = best_factorization(n_devices)
+    mesh = make_mesh([dev] * n_devices, (ny, nx))
+    h = max(512, 128 * ny) - 3
+    w = max(1024, 128 * nx) - 5
+    dem = torch.from_numpy(synth_np.depression_dem(h, w, seed=7)).to(dev)
+    out = sharded_pipeline(dem, mesh=mesh, eps=1e-3)
+    torch.cuda.synchronize()
+    if tuple(out["accum"].shape) != (h, w) or not float(out["accum"].sum()):
+        raise AssertionError("dryrun: wrong shape or empty accumulation")
+    filled, _, done = fill.fill_depressions_info(
+        dem, eps=1e-3, w0=torch.full_like(dem, sweeps.BIG))
+    mask = torch.zeros_like(dem, dtype=torch.bool)
+    fd = flowdirs.d8_core(filled, mask)
+    want = {"filled": filled, "flowdirs": fd,
+            "accum": accum.d8_accumulation(fd),
+            "slope": terrain.terrain_fused(filled, mask, 1.0, 1.0,
+                                           "slope_radians")}
+    bad = [k for k in want if not same(out[k], want[k])]
+    if not done or bad:
+        raise AssertionError(f"dryrun: {bad} differ from the in-core ops")
+    return h, w
+
+
+def sharded_gates(out, z, eps, what):
+    """The sharded pipeline's outputs against the in-core ops on ``z``: the
+    fill bitwise the fill from BIG and ``fill_epsilon`` (its multigrid
+    start), codes and slope bitwise, the accumulation bitwise below 2²⁴
+    and within TWOPASS_ACC_RTOL above.  Returns (rotations from BIG,
+    cells at or above 2²⁴, their largest relative difference)."""
+    import torch
+    from richdem_tpu_torch.ops import accum, fill, flowdirs, sweeps, terrain
+
+    want, big_iters, done = fill.fill_depressions_info(
+        z, eps=eps, w0=torch.full_like(z, sweeps.BIG))
+    if not (done and torch.equal(out["filled"], want)):
+        raise AssertionError(f"sharded {what}: the fill differs from the "
+                             f"fill from BIG ({max_abs(out['filled'], want)})")
+    if not torch.equal(fill.fill_epsilon(z, eps=eps), want):
+        raise AssertionError(f"sharded {what}: fill_epsilon differs from "
+                             "the fill from BIG")
+    mask = torch.zeros_like(z, dtype=torch.bool)
+    fd = flowdirs.d8_core(want, mask)
+    if not torch.equal(out["flowdirs"], fd):
+        raise AssertionError(f"sharded {what}: D8 codes differ")
+    if not same(out["slope"], terrain.terrain_fused(
+            want, mask, 1.0, 1.0, "slope_radians")):
+        raise AssertionError(f"sharded {what}: slope differs")
+    acc = accum.d8_accumulation(fd)
+    del want, fd
+    return (big_iters,) + held_accumulation(out["accum"], acc,
+                                            f"sharded {what}")
+
+
+def held_accumulation(got, want, what):
+    """``got`` bitwise ``want`` below 2²⁴, within TWOPASS_ACC_RTOL above;
+    returns (cells above, their largest relative difference)."""
+    import torch
+
+    exact = want < 2.0 ** 24
+    if not torch.equal(got[exact], want[exact]):
+        raise AssertionError(f"{what}: accumulation differs below 2^24 "
+                             f"({max_abs(got[exact], want[exact])})")
+    above = ~exact
+    rel = 0.0
+    if bool(above.any()):
+        rel = float(((got[above].double() - want[above].double()).abs()
+                     / want[above].double()).max())
+        if not rel <= TWOPASS_ACC_RTOL:
+            raise AssertionError(f"{what}: accumulation off by {rel} "
+                                 "relative above 2^24")
+    return int(above.sum()), rel
+
+
+def phase_sharded(dev, card, kernels, err, main_best):
+    """The sharded mesh on one card: a 2×2 mesh whose four positions are
+    all ``cuda:0``.  ``sharded_pipeline`` (ε = SHARDED_EPS) of the MAIN²
+    Perlin DEM (seed 0) held to the in-core ops (``sharded_gates``) and
+    timed; the two-pass fill and accumulation on the same mesh, two data
+    passes each, bitwise the Schwarz fill at ε = 0 and the Schwarz
+    accumulation (below 2²⁴; TWOPASS_ACC_RTOL above); Quinn accumulation
+    at SHARDED_MFD_EDGE² within rtol 2e-5, atol 1e-4 of the in-core one,
+    mass conserved within 1e-5; the uneven dryrun; the pipeline through a
+    one-rank NCCL group at SHARDED_NCCL_EDGE² bitwise the in-process mesh;
+    then the seven kernels at their path's shapes against their plain
+    versions and timed.  Returns the launches of each sharded path, the
+    kernels' times and the shapes they were timed at."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import accum, fill, flowdirs
+    from richdem_tpu_torch.parallel import (make_mesh,
+                                            sharded_accumulation_d8_twopass,
+                                            sharded_accumulation_mfd,
+                                            sharded_fill,
+                                            sharded_fill_twopass,
+                                            sharded_pipeline)
+
+    mesh = make_mesh([dev] * (SHARDED_MESH[0] * SHARDED_MESH[1]),
+                     SHARDED_MESH)
+    z = tsynth.perlin_dem(MAIN, MAIN, seed=0, device=dev)
+    eps = SHARDED_EPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    stats = {}
+    t0 = time.perf_counter()
+    out, launches = run_path(
+        "sharded", kernels, ("fill_sweep", "d8", "accum_sweep", "terrain"),
+        lambda: sharded_pipeline(z, mesh=mesh, eps=eps, stats=stats))
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    big_iters, n_big, rel = sharded_gates(out, z, eps, "pipeline")
+    ev_secs, host_secs, last = timed_steps(
+        lambda: sharded_pipeline(z, mesh=mesh, eps=eps))
+    if not all(same(last[k], out[k]) for k in out):
+        raise AssertionError("sharded pipeline is not deterministic")
+    del last
+    n = MAIN * MAIN
+    log("sharded", f"{MAIN}x{MAIN} Perlin seed 0 over a {SHARDED_MESH} "
+        f"mesh on one card, eps={eps}: fill {stats['fill_outer_iters']} "
+        f"outer iterations ({stats['fill_rotations']} local rotations), "
+        f"accumulation {stats['accum_outer_iters']} outer iterations "
+        f"({stats['accum_rotations']} local rotations); the fill bitwise "
+        f"the in-core fill from BIG ({big_iters} rotations) and "
+        f"fill_epsilon, codes and slope bitwise, the accumulation bitwise "
+        f"below 2^24 ({n_big} cells above, within rtol {rel:.3e}); first "
+        f"step {first_s:.3f} s; {STEPS} steps after it: {ev_secs} s (CUDA "
+        f"events), {host_secs} s (host); best {min(ev_secs):.4f} s "
+        f"({n / min(ev_secs):.4e} cells/s) beside the in-core main path's "
+        f"{main_best:.4f} s (eps=0, with_twi); peak allocated above the "
+        f"DEM {peak / 2**30:.3f} GiB; launches {launches}; on [{card}]")
+
+    # the two-pass pair on the same mesh
+    st_f, st_a = {}, {}
+    t0 = time.perf_counter()
+    (two, acc2), tp_launches = run_path(
+        "sharded_twopass", kernels,
+        ("fill_sweep", "d8", "dist_sweep", "resolve_sweep", "accum_sweep"),
+        lambda: (sharded_fill_twopass(z, mesh=mesh, stats=st_f),
+                 sharded_accumulation_d8_twopass(out["flowdirs"], mesh=mesh,
+                                                 stats=st_a)))
+    tp_s = time.perf_counter() - t0
+    if st_f["data_passes"] != 2 or st_a["data_passes"] != 2:
+        raise AssertionError(f"sharded two-pass: {st_f}, {st_a}")
+    st0 = {}
+    schwarz0 = sharded_fill(z, mesh=mesh, eps=0.0, stats=st0)
+    if not (torch.equal(two, schwarz0)
+            and torch.equal(schwarz0, fill.fill_depressions(z))):
+        raise AssertionError("sharded two-pass fill differs from the "
+                             "Schwarz fill at eps=0 or the in-core fill")
+    tp_big, tp_rel = held_accumulation(acc2, out["accum"],
+                                       "sharded two-pass")
+    del two, acc2, schwarz0, out
+    log("sharded", f"two-pass pair on the mesh: {tp_s:.3f} s, "
+        f"{st_f['data_passes']} + {st_a['data_passes']} data passes "
+        f"({st_f['n_labels']} labels, {st_a['n_exits']} exits); the fill "
+        f"bitwise the Schwarz fill at eps=0 ({st0['fill_outer_iters']} "
+        f"outer iterations) and the in-core fill, the accumulation bitwise "
+        f"the Schwarz accumulation below 2^24 ({tp_big} cells above, "
+        f"within rtol {tp_rel:.3e}); launches {tp_launches}")
+
+    # multi-flow accumulation
+    edge = SHARDED_MFD_EDGE
+    zq = z[:edge, :edge].contiguous()
+    props = flowdirs.flow_proportions(fill.fill_depressions(zq, eps=1e-2),
+                                      "Quinn")
+    del zq
+    mst = {}
+    t0 = time.perf_counter()
+    got, mfd_launches = run_path(
+        "sharded_mfd", kernels, ("mfd_sweep",),
+        lambda: sharded_accumulation_mfd(props, mesh=mesh, stats=mst))
+    mfd_s = time.perf_counter() - t0
+    want = accum.flow_accumulation_from_props(props)
+    if not torch.allclose(got, want, rtol=2e-5, atol=1e-4):
+        raise AssertionError(f"sharded Quinn accumulation off the in-core "
+                             f"one ({max_abs(got, want)})")
+    mass = absorbed_mass(got, props)
+    if not abs(mass - edge * edge) <= 1e-5 * edge * edge:
+        raise AssertionError(f"sharded Quinn mass {mass} of {edge ** 2}")
+    log("sharded", f"Quinn accumulation at {edge}x{edge} on the mesh: "
+        f"{mfd_s:.3f} s, {mst['mfd_outer_iters']} outer iterations "
+        f"({mst['mfd_rotations']} local rotations); within rtol 2e-5, atol "
+        f"1e-4 of the in-core accumulation (max |diff| "
+        f"{max_abs(got, want)}); mass {mass!r} of {edge * edge}; launches "
+        f"{mfd_launches}")
+    del got, want, props
+
+    shape = dryrun_multichip(4)
+    log("sharded", f"dryrun_multichip(4): {shape} depression DEM over a "
+        "2x2 mesh, padded and cropped, bitwise the in-core ops")
+
+    # one rank of NCCL: every halo and flag through collectives
+    zs = z[:SHARDED_NCCL_EDGE, :SHARDED_NCCL_EDGE].contiguous()
+    local = sharded_pipeline(zs, mesh=mesh, eps=eps)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("localhost", port, 1, True)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        gmesh = make_mesh([dev] * len(mesh.local_positions), SHARDED_MESH)
+        if gmesh.group is None:
+            raise AssertionError("the NCCL mesh has no group")
+        t0 = time.perf_counter()
+        coll = sharded_pipeline(zs, mesh=gmesh, eps=eps)
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    del store
+    bad = [k for k in local if not same(coll[k], local[k])]
+    if bad:
+        raise AssertionError(f"sharded NCCL run: {bad} differ from the "
+                             "in-process mesh")
+    log("sharded", f"one-rank NCCL group at {SHARDED_NCCL_EDGE}^2: "
+        f"{nccl_s:.3f} s, bitwise the in-process mesh")
+    del zs, local, coll
+
+    # the kernels at the shape their path gives them: the Schwarz fill and
+    # the stencils an extended block (a shard and its 1-cell ring), the
+    # local accumulation solves and the two-pass consumers a shard, at the
+    # edge their path ran at
+    times, blocks = {}, {}
+    ny, nx = SHARDED_MESH
+    for names, e, ring, what in (
+            (("fill_sweep", "d8", "terrain"), MAIN, 2, "extended block"),
+            (("accum_sweep", "dist_sweep", "resolve_sweep"), MAIN, 0,
+             "shard"),
+            (("mfd_sweep",), edge, 0, "shard")):
+        bh, bw = e // ny + ring, e // nx + ring
+        block_kernels(names, z[:bh, :bw].contiguous(),
+                      torch.zeros((bh, bw), dtype=torch.bool, device=dev),
+                      eps, err, card, times, "sharded", what)
+        blocks.update({n: [bh, bw] for n in names})
+    return {"sharded": launches, "sharded_twopass": tp_launches,
+            "sharded_mfd": mfd_launches}, times, blocks
 
 
 def main():
@@ -2188,7 +2496,7 @@ def main():
     phase_native(dev)
     phase_native_flow(dev)
     phase_serpentine(dev, card)
-    out, launches, z = phase_main(dev, card, kernels)
+    out, launches, z, main_best = phase_main(dev, card, kernels)
     phase_flats_full(out)
     path_launches = {"main": launches,
                      "config2": phase_config2(dev, card, kernels),
@@ -2209,6 +2517,8 @@ def main():
     phase_scan_timing(dev, card, dem, mask, eps, err, times)
     del dem, mask
     twopass_launches, twopass_times = phase_twopass(dev, card, kernels, err)
+    sharded_launches, sharded_times, blocks = phase_sharded(
+        dev, card, kernels, err, main_best)
     if any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
            or m == "richdem_tpu"
            for m in sys.modules if sys.modules[m] is not None):
@@ -2235,7 +2545,12 @@ def main():
              "launches": sum(run[k.name]
                              for run in twopass_launches.values()),
              "tile": TWOPASS_TILE, **twopass_times[k.name]}}
-            if k.name in twopass_times else {})}
+            if k.name in twopass_times else {}),
+         **({"sharded": {
+             "launches": sum(run[k.name]
+                             for run in sharded_launches.values()),
+             "block": blocks[k.name], **sharded_times[k.name]}}
+            if k.name in sharded_times else {})}
         for k in kernels]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

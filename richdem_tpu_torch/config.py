@@ -86,10 +86,22 @@ class PipelineConfig:
                 out["twi"] = rd.TWI(acc, slope).np()
             return out
         if self.mesh is not None:
-            raise NotImplementedError(
-                "the sharded mesh pipeline is not ported yet (ROADMAP "
-                "queue 1, item 6: parallel/halo.py, mesh.py and "
-                "sharded.py remain)")
+            import torch
+
+            from richdem_tpu_torch.ops.stencil import nodata_like
+            from richdem_tpu_torch.parallel import (make_mesh,
+                                                    sharded_pipeline)
+
+            ny, nx = self.mesh
+            # the card's devices, or the one device the DEM lives on
+            # repeated over the mesh (the CPU, as the reference's tests
+            # take 8 virtual CPU devices)
+            mesh = make_mesh(None if z.device.type == "cuda"
+                             else [z.device] * (ny * nx), shape=self.mesh)
+            nd_mask = None if no_data is None else nodata_like(z, no_data)
+            return sharded_pipeline(z.to(torch.float32), mesh=mesh, eps=eps,
+                                    nodata_mask=nd_mask,
+                                    cellsize=self.cellsize)
         if self.cache_dir:
             from richdem_tpu_torch.pipeline import resumable_pipeline
 

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from richdem_tpu_torch.ops.stencil import nodata_like
+from richdem_tpu_torch.parallel.mesh import ShardedArray
 
 __all__ = ["from_numpy", "raster_from_numpy", "props_from_numpy",
            "to_numpy"]
@@ -51,9 +52,16 @@ def props_from_numpy(props, device="cuda"):
 
 
 def to_numpy(out):
-    """A pipeline output dict as numpy, in the reference's dtypes."""
+    """A pipeline output dict as numpy, in the reference's dtypes.  A value
+    spread over processes (a ``parallel.mesh.ShardedArray``) becomes the
+    list of this process's ``(global slices, block)`` pairs, the
+    counterpart of a ``jax.Array``'s ``addressable_shards``."""
     res = {}
     for key, val in out.items():
+        if isinstance(val, ShardedArray):
+            res[key] = [(sh.index, sh.data.detach().cpu().numpy().astype(
+                _DTYPES[key], copy=False)) for sh in val.addressable_shards]
+            continue
         if torch.is_tensor(val):
             val = val.detach().cpu().numpy()
         res[key] = np.asarray(val).astype(_DTYPES[key], copy=False)

@@ -144,20 +144,84 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+#: float32 rounding to nearest: ``|fl(x) - x| <= U32·|x| + TINY32``
+#: (TINY32, half the least subnormal, covers results below the normals).
+U32 = 2.0 ** -24
+TINY32 = 2.0 ** -150
+
+
+def _round_up_f32(x64):
+    """The least float32 at or above each float64 of ``x64``."""
+    x = x64.to(torch.float32)
+    up = torch.nextafter(x, torch.full_like(x, math.inf))
+    return torch.where(x.double() < x64, up, x)
+
+
 def _coarse_warm_start(zed, eps, factor=8, max_iters=256):
-    """Multigrid upper bound: fill the block-max-pooled DEM and upsample.
-    Any coarse drainage path expands to a fine path with smaller maxima, so
-    the upsampled coarse fill is ≥ the fine fixpoint — a valid ``w0`` for
-    the monotone-decreasing sweeps.  A coarse ε step covers ≤ 2·factor² fine
-    steps, hence the ε scaling.  Nodata cells already carry -BIG in
-    ``zed``."""
+    """Multigrid upper bound of the float32 fine fixpoint ``W*``: fill the
+    block-max-pooled DEM with a coarse ``ε_c``, raise it by ``δ`` and
+    upsample, ``U = max(Z, Wc + δ)``.  Nodata cells carry -BIG in ``zed``.
+    A valid ``w0`` for the monotone-decreasing sweeps, which then reach
+    ``W*`` exactly.
+
+    Why ``U ≥ W*``, with ``f = factor``.  Every block ``C0`` with data has
+    a coarse path ``C0 … Cm`` to the coarse edge along which the coarse
+    fixpoint is its own chain, ``Wc(Cj) = max(Zc(Cj), fl(Wc(Cj+1) + ε_c))``.
+    From a cell ``c`` of ``C0`` a fine path walks straight into each next
+    block (at most ``f`` steps a block, through cells of the two blocks
+    only, each at most its block's maximum ``Zc``), then to the grid edge
+    in ``Cm``; it ends early at a nodata cell, which drains.  ``W*`` is at
+    most the fine chain ``B(p) = max(Z(p), fl(B(next) + ε))`` along that
+    path.  Each rounding errs by at most ``U32·M + TINY32`` with ``M``
+    bounding the values involved (the data's and the coarse fill's largest
+    magnitude, plus ``δ + ε``), so a fine step rises at most ``ε' = ε +
+    U32·M + TINY32`` and a coarse step at least ``ε_c - U32·(M + ε_c) -
+    TINY32``.  A cell of the path in block ``Cj`` lies at most ``(j+1)·f -
+    1`` steps from ``c``, so
+
+        W*(c) ≤ max_j Zc(Cj) + ((j+1)·f - 1)·ε'
+              ≤ max_j Zc(Cj) + j·(ε_c - U32·(M + ε_c) - TINY32) + (f-1)·ε'
+              ≤ Wc(C0) + δ,      δ = (f-1)·ε',
+
+    given ``ε_c - U32·(M + ε_c) - TINY32 ≥ f·ε'``, which the start checks
+    after the coarse solve (raising ``ε_c`` and solving again when it
+    fails).  ``Wc + δ`` is rounded up to float32.  ``δ`` is the rise inside
+    the start block, as when the block's own maximum is the spill of a pit
+    in the block: without it the start lies below ``W*`` there.  ``ε_c``
+    stays ``2·f²·ε`` (the reference's scaling) wherever that passes the
+    check.  At ε = 0 no step rounds: ``ε_c = δ = 0`` and ``U`` is the
+    plain upsampled coarse fill."""
     h, w = zed.shape
     ph, pw = (-h) % factor, (-w) % factor
     zp = F.pad(zed, (0, pw, 0, ph), value=-BIG)
     zc = F.max_pool2d(zp[None, None], factor, factor)[0, 0].contiguous()
     coarse_eps = _f32(np.float32(eps) * np.float32(2.0 * factor * factor))
-    wc, _, _ = fill_fixpoint_core(torch.full_like(zc, BIG), zc, coarse_eps,
-                                  max_iters, fill_sweep)
+
+    def solve(ce):
+        wc, _, _ = fill_fixpoint_core(torch.full_like(zc, BIG), zc, ce,
+                                      max_iters, fill_sweep)
+        return wc
+
+    wc = solve(coarse_eps)
+    if eps > 0:
+        zmax = float(torch.where(zed > -BIG / 2, zed.abs(), 0.0).max())
+        data = zc > -BIG / 2
+        for _ in range(4):
+            live = data & (wc < BIG / 2)
+            m0 = max(zmax, float(torch.where(live, wc.abs(), 0.0).max()))
+            # one fine step's rise ε' (M = m0 + δ + ε, δ = (f-1)·ε')
+            eps_f = ((eps + U32 * (m0 + eps) + TINY32)
+                     / (1.0 - U32 * (factor - 1)))
+            need = factor * eps_f + U32 * (m0 + coarse_eps) + TINY32
+            if coarse_eps >= need:
+                break
+            coarse_eps = float(_round_up_f32(
+                torch.tensor(2.0 * need, dtype=torch.float64)))
+            wc = solve(coarse_eps)
+        else:
+            raise RuntimeError("multigrid start: no coarse epsilon bounds "
+                               "the fine steps' rounding")
+        wc = _round_up_f32(wc.double() + (factor - 1) * eps_f)
     up = wc.repeat_interleave(factor, 0).repeat_interleave(factor, 1)
     return torch.maximum(up[:h, :w], zed)
 

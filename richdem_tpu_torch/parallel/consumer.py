@@ -35,7 +35,7 @@ in-tile terminal of its flow path (the successor resolve).
 
 :func:`_local_fill_solve` is the exact local fill fixpoint on a
 halo-extended block with its ring clamped: the step of the Schwarz fill
-(``outofcore``), and of the sharded fill to come.
+(``outofcore``) and of the sharded fill (``sharded``).
 """
 
 from __future__ import annotations
@@ -275,13 +275,17 @@ def accum_tile_consumer(fd_tile, weights=None, device="cuda"):
     return acc, ring
 
 
-def _local_fill_solve(ext, floor_ext, eps, inner_iters):
+def _local_fill_solve(ext, floor_ext, eps, inner_iters, stats=None):
     """Exact local fill fixpoint on a halo-extended block, its ring
     clamped (``w0 == floor`` there): the fill kernel's rotations from
     ``w0 = ext``, where ``ext`` lives.  Raises if ``inner_iters`` rotations
-    do not converge (the reference returns the block as it stands)."""
-    new_ext, _, done = fill_fixpoint_core(
+    do not converge (the reference returns the block as it stands).
+    ``stats``: a dict whose ``"fill_rotations"`` gains the rotations run
+    (each one host sync)."""
+    new_ext, iters, done = fill_fixpoint_core(
         ext.contiguous(), floor_ext.contiguous(),
         float(np.float32(eps)), inner_iters, fill_sweep)
     _require_converged(done, "local fill solve", inner_iters)
+    if stats is not None:
+        stats["fill_rotations"] = stats.get("fill_rotations", 0) + iters
     return new_ext

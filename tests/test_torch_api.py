@@ -332,11 +332,24 @@ def test_config_run_mfd():
     assert out["accum"].sum() > 0
 
 
-def test_config_mesh_not_ported():
-    dem = synth.depression_dem(16, seed=7, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6: "
-                       r"parallel/halo\.py, mesh\.py and sharded\.py"):
-        PipelineConfig(mesh=(2, 4)).run(dem, device="cpu")
+def test_config_mesh_runs_the_sharded_pipeline():
+    """``mesh=(2, 4)`` runs the sharded pipeline: on the CPU over 8
+    positions of the CPU, against the reference's over the conftest's 8
+    devices; a JSON config of the reference runs unchanged.  The four keys
+    bitwise, slope to rtol 1e-6 (the port's sqrt against the reference's
+    hypot, through atan)."""
+    dem = synth.with_nodata_holes(
+        synth.depression_dem(40, 48, seed=7, dtype=np.float32), no_data=ND,
+        seed=3, n_holes=2)
+    want = JaxConfig(mesh=(2, 4)).run(dem, no_data=ND)
+    cfg = PipelineConfig.from_json(JaxConfig(mesh=(2, 4)).to_json())
+    assert cfg.mesh == (2, 4)
+    out = cfg.run(dem, no_data=ND, device="cpu")
+    assert set(out) == set(want) == {"filled", "flowdirs", "accum", "slope"}
+    for key in ("filled", "flowdirs", "accum"):
+        np.testing.assert_array_equal(out[key].numpy(), np.asarray(want[key]))
+    np.testing.assert_allclose(out["slope"].numpy(), np.asarray(want["slope"]),
+                               rtol=1e-6, atol=0)
 
 
 # -- checkpoint (tests/test_checkpoint.py) --------------------------------

@@ -37,7 +37,12 @@ fixpoint at 512².  The two-pass programs at 1024² (tile 256) run the
 fill, D8, distance, resolve and accumulation kernels and equal the
 in-core results and the native consumer bitwise, as does the ε Schwarz
 fill the in-core ε-fill from BIG; the min-plus names run the fill kernel
-for a fill-shaped call and equal the CPU's plain code otherwise.
+for a fill-shaped call and equal the CPU's plain code otherwise.  The
+sharded mesh over four positions of one card (1024×1100, extended blocks
+514×552): the pipeline's fill, codes, accumulation and slope bitwise the
+in-core ops, the two-pass pair bitwise the Schwarz results, Quinn
+accumulation within rtol 2e-5, and a one-rank NCCL group bitwise the
+in-process mesh.
 """
 
 import numpy as np
@@ -1066,3 +1071,126 @@ def test_minplus_general_costs_on_the_card(dev):
         assert torch.equal(
             fn(seeds.to(dev), floor.to(dev), costs.to(dev), big).cpu(),
             fn(seeds, floor, costs, big))
+
+
+# -- the sharded mesh ---------------------------------------------------------
+
+SHARDED_SHAPE = (1024, 1100)  # extended blocks 514×552 on a 2×2 mesh
+
+
+def _same(a, b):
+    """Bitwise equal, NaN where the other has NaN (slope at nodata)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan], b[~nan]))
+
+
+@pytest.fixture(scope="module")
+def sharded_dem(dev):
+    """A 1024×1100 Perlin DEM with nodata holes on the card, its mask, and
+    a 2×2 mesh whose four positions are all ``cuda:0``."""
+    from richdem_tpu_torch.parallel import make_mesh
+
+    z, mask = _dem(SHARDED_SHAPE, dev, seed=8)
+    return z, mask, make_mesh([dev] * 4, (2, 2))
+
+
+def test_sharded_pipeline_on_the_card(dev, sharded_dem):
+    """ε = 1e-3 over the 2×2 mesh through the fill, D8, accumulation and
+    terrain kernels on 514×552 extended blocks: the fill bitwise the
+    in-core fill from BIG (and ``fill_epsilon`` from its multigrid start),
+    codes, accumulation (integer sums below 2²⁴) and slope bitwise the
+    in-core ops."""
+    from richdem_tpu_torch.parallel import sharded_pipeline
+
+    z, mask, mesh = sharded_dem
+    names = ("fill_sweep", "d8", "accum_sweep", "terrain")
+    ks = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP, terrain.TERRAIN]
+    before = [k.launches for k in ks]
+    stats = {}
+    out = sharded_pipeline(z, mesh=mesh, eps=1e-3, nodata_mask=mask,
+                           stats=stats)
+    launched = {n: k.launches - b for n, k, b in zip(names, ks, before)}
+    assert all(v > 0 for v in launched.values()), launched
+    assert stats["fill_outer_iters"] >= 2
+    want, _, done = fill.fill_depressions_info(
+        z, mask, eps=1e-3, w0=torch.full_like(z, sweeps.BIG))
+    assert done
+    assert torch.equal(out["filled"], want)
+    fd = flowdirs.d8_core(want, mask)
+    assert torch.equal(out["flowdirs"], fd)
+    acc = accum.d8_accumulation(fd, no_data_mask=mask)
+    assert float(acc.max()) < 2.0 ** 24
+    assert torch.equal(out["accum"], acc)
+    assert _same(out["slope"], terrain.terrain_fused(
+        want, mask, 1.0, 1.0, "slope_radians"))
+
+
+def test_sharded_twopass_on_the_card(dev, sharded_dem):
+    """The two-pass fill and accumulation over the 2×2 mesh: two data
+    passes each, bitwise the Schwarz fill at ε = 0 and the Schwarz
+    accumulation."""
+    from richdem_tpu_torch.parallel import (sharded_accumulation_d8,
+                                            sharded_accumulation_d8_twopass,
+                                            sharded_fill,
+                                            sharded_fill_twopass)
+
+    z, mask, mesh = sharded_dem
+    dem = torch.where(mask, -9999.0, z)
+    stats = {}
+    two = sharded_fill_twopass(dem, mesh=mesh, no_data=-9999.0, stats=stats)
+    assert stats["data_passes"] == 2
+    schwarz = sharded_fill(dem, mesh=mesh, nodata_mask=mask)
+    assert torch.equal(two, schwarz)
+    fd = flowdirs.d8_core(schwarz, mask)
+    stats = {}
+    acc2 = sharded_accumulation_d8_twopass(fd, mesh=mesh, no_data_mask=mask,
+                                           stats=stats)
+    assert stats["data_passes"] == 2
+    assert torch.equal(acc2, sharded_accumulation_d8(fd, mesh=mesh,
+                                                     no_data_mask=mask))
+
+
+def test_sharded_mfd_on_the_card(dev, sharded_dem):
+    """Quinn accumulation over the 2×2 mesh through the multi-flow kernel:
+    within rtol 2e-5, atol 1e-4 of the in-core accumulation."""
+    from richdem_tpu_torch.parallel import sharded_accumulation_mfd
+
+    z, mask, mesh = sharded_dem
+    filled = fill.fill_depressions(z[:512, :512], eps=1e-3)
+    props = flowdirs.flow_proportions(filled, "Quinn")
+    before = mfd.MFD_SWEEP.launches
+    got = sharded_accumulation_mfd(props, mesh=mesh)
+    assert mfd.MFD_SWEEP.launches > before
+    torch.testing.assert_close(got, accum.flow_accumulation_from_props(props),
+                               rtol=2e-5, atol=1e-4)
+
+
+def test_sharded_pipeline_one_rank_nccl(dev, sharded_dem):
+    """Through a one-rank NCCL group every halo and flag travels by
+    collectives on the card: bitwise the in-process result."""
+    import socket
+
+    import torch.distributed as dist
+
+    from richdem_tpu_torch.parallel import make_mesh, sharded_pipeline
+
+    z, mask, local = sharded_dem
+    z, mask = z[:256, :300].contiguous(), mask[:256, :300].contiguous()
+    want = sharded_pipeline(z, mesh=local, eps=1e-3, nodata_mask=mask)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh([dev] * 4, (2, 2))
+        assert mesh.group is not None
+        got = sharded_pipeline(z, mesh=mesh, eps=1e-3, nodata_mask=mask)
+    finally:
+        dist.destroy_process_group()
+    for key in want:
+        assert _same(got[key], want[key]), key

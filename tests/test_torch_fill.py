@@ -193,3 +193,61 @@ def test_scale_diagonal_bitwise_vs_pallas(hw):
     filled = tfill.fill_depressions(dem, no_data=ND, eps=eps,
                                     scale_diagonal=True, device="cpu")
     np.testing.assert_array_equal(filled.numpy(), got)
+
+
+def _corner_spill_dem(seed):
+    """A seeded 64×72 DEM lifted to about 4000 m: a walled bowl over the
+    2×2 blocks of rows and columns 8..23 whose only spill is the cell
+    (23, 23), the maximum of its 8×8 block, which drains diagonally to a
+    lower slope.  The coarse fill sees that block at its maximum, while
+    the bowl's cells inside it sit up to 7 ε above the spill."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:64, 0:72].astype(np.float64)
+    dem = 40.0 - 0.125 * (x + y) + rng.uniform(0, 0.5, y.shape)
+    dem[8:24, 8:24] = rng.uniform(0, 1.0, (16, 16))
+    wall = np.zeros(y.shape, bool)
+    wall[7, 7:25] = wall[7:25, 7] = wall[24, 7:24] = wall[7:24, 24] = True
+    wall[23, 23] = True
+    dem[wall] = 100.0 + rng.uniform(0, 1.0, int(wall.sum()))
+    dem[23, 23] = 50.0
+    return (dem + 4000.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["corner_spill", "holes"])
+def test_multigrid_start_bounds_the_epsilon_fill(kind, monkeypatch):
+    """At ε > 0 the multigrid start is an upper bound of the float32
+    fixpoint, so ``fill_epsilon`` from it is bitwise the fill from BIG.
+    The corner-spill DEM puts a pit's spill at its block's maximum: the
+    start without its in-block rise lies up to 7 ε below the fixpoint
+    there, and so did the fill from it."""
+    monkeypatch.setattr(tfill, "MULTISCALE_MIN", 64)
+    eps = 1e-3
+    if kind == "corner_spill":
+        dem = _corner_spill_dem(seed=0)
+    else:
+        dem = _dem(96, 112, seed=7) + np.float32(4000.0)
+        dem[dem < 0] = ND
+    z, m = convert.from_numpy(dem, ND, device="cpu")
+    want, _, done = tfill.fill_depressions_info(
+        z, m, eps=eps, w0=torch.full_like(z, tsweeps.BIG))
+    assert done
+    zed = torch.where(m, -tsweeps.BIG, z)
+    warm = tfill._coarse_warm_start(zed, tfill._f32(eps))
+    assert bool((warm[~m] >= want[~m]).all())
+    got = tfill.fill_epsilon(z, no_data=ND, eps=eps)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_multigrid_start_at_eps_zero_is_unchanged():
+    """At ε = 0 the start is the plain upsampled coarse fill, as before the
+    in-block rise was added: the main path's start is untouched."""
+    dem = _dem(96, 112, seed=3)
+    z, m = convert.from_numpy(dem, ND, device="cpu")
+    zed = torch.where(m, -tsweeps.BIG, z)
+    zc = torch.nn.functional.max_pool2d(zed[None, None], 8, 8)[0, 0]
+    wc, _, _ = tsweeps.fill_fixpoint_core(
+        torch.full_like(zc, tsweeps.BIG), zc.contiguous(), 0.0, 256,
+        tfill.fill_sweep)
+    up = wc.repeat_interleave(8, 0).repeat_interleave(8, 1)
+    want = torch.maximum(up, zed)
+    assert torch.equal(tfill._coarse_warm_start(zed, 0.0), want)

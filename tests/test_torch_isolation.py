@@ -24,7 +24,7 @@ from richdem_tpu_torch import _build, convert
 from richdem_tpu_torch import synth as tsynth
 from richdem_tpu_torch.ops import (accum, dinf, fill, flats, flowdirs, mfd,
                                    orlandini, stencil, successor, terrain)
-from richdem_tpu_torch.parallel import consumer, outofcore
+from richdem_tpu_torch.parallel import consumer, outofcore, sharded
 
 torch.set_num_threads(1)
 
@@ -113,6 +113,16 @@ np.save(os.path.join(tmp, "fd.npy"), fd.numpy())
 acc = np.load(out_of_core_accum_d8(os.path.join(tmp, "fd.npy"), tile=20,
                                    device="cpu"))
 assert acc.max() > 10
+from richdem_tpu_torch.parallel import halo, mesh as pmesh, sharded
+m4 = pmesh.make_mesh([torch.device("cpu")] * 4)
+ext = halo.exchange_halo(pmesh.grid_sharding(m4).split(filled), m4, 1, 0.0)
+assert ext[(0, 0)].shape == (26, 26)
+sp = sharded.sharded_pipeline(dem, mesh=m4, eps=0.0)
+assert torch.equal(sp["filled"], filled)
+from richdem_tpu_torch.ops.accum import d8_accumulation
+assert torch.equal(sp["accum"], d8_accumulation(d8_flowdirs(filled)))
+cfg = rt.PipelineConfig(eps=0.0, mesh=(2, 2)).run(dem, device="cpu")
+assert torch.equal(cfg["flowdirs"], sp["flowdirs"])
 reference = os.path.join(sys.argv[1], "richdem_tpu") + os.sep
 loaded = [m for m, mod in list(sys.modules.items()) if mod is not None]
 assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
@@ -131,8 +141,10 @@ def test_port_runs_alone_without_jax(tmp_path):
     API, Orlandini, ``PipelineConfig``, the CLI with its phase cache and
     the IO and layout copies, ``rt.synth``/``rt.io``/``rt.topology``, the
     debug module, the oracle copies, the two-pass fill and accumulation on
-    the CPU, and (where g++ exists) the port's own native engine with
-    breaching, which builds into the copy."""
+    the CPU, the sharded mesh (halo exchange, ``sharded_pipeline`` and
+    ``PipelineConfig(mesh=...)`` over CPU positions), and (where g++
+    exists) the port's own native engine with breaching, which builds into
+    the copy."""
     shutil.copytree(os.path.join(REPO, "richdem_tpu_torch"),
                     tmp_path / "richdem_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
@@ -176,6 +188,28 @@ def test_package_exposes_the_reference_names():
     for name in ("synth", "io", "topology"):
         mod = getattr(rt, name)
         assert mod.__name__ == f"richdem_tpu_torch.{name}"
+
+
+def test_parallel_exposes_the_reference_names():
+    """The port's ``parallel`` package exports every function that
+    ``richdem_tpu.parallel`` does, and its mesh, halo and sharded modules
+    every public name of their counterparts."""
+    import inspect
+
+    import richdem_tpu.parallel as jp
+    from richdem_tpu.parallel import halo as jhalo
+    from richdem_tpu.parallel import mesh as jmesh
+    from richdem_tpu.parallel import sharded as jsharded
+    from richdem_tpu_torch import parallel as tp
+    from richdem_tpu_torch.parallel import halo, mesh, sharded
+
+    names = {n for n, v in vars(jp).items()
+             if inspect.isfunction(v) and not n.startswith("_")}
+    assert names and names <= set(tp.__all__)
+    for ref, port in ((jhalo, halo), (jmesh, mesh), (jsharded, sharded)):
+        assert set(ref.__all__) <= set(port.__all__)
+        for name in ref.__all__:
+            assert callable(getattr(port, name))
 
 
 def _npy(arr):
@@ -235,6 +269,10 @@ def _entry_points():
             outofcore.out_of_core_fill(_npy(dem)))).cuda(),
         "out_of_core_accum_d8": lambda: torch.from_numpy(np.load(
             outofcore.out_of_core_accum_d8(_npy(fd)))).cuda(),
+        "sharded_pipeline": lambda: sharded.sharded_pipeline(dem)["accum"],
+        "sharded_fill_twopass": lambda: sharded.sharded_fill_twopass(dem),
+        "PipelineConfig.run(mesh)":
+            lambda: rt.PipelineConfig(mesh=(1, 1)).run(dem)["filled"],
     }
 
 
