@@ -5,6 +5,9 @@ Counterpart of ``richdem_tpu.debug``:
 * :func:`trace` — a ``torch.profiler`` context for a phase, which writes
   one Chrome-format trace (host ops, and the card's kernels and copies
   when there is a card) that Perfetto and ``chrome://tracing`` open;
+* :func:`span` — the layer spans (:data:`SPANS`) that the ``ops`` entries
+  open while a profiler records, so a trace puts each kernel, copy and
+  host sync down to the layer that launched it;
 * :class:`PhaseTimer` — wall-clock phase timers with an RDLOG_TIME_USE
   style summary, logged through :mod:`richdem_tpu_torch.provenance`;
 * :func:`check_raster` — finiteness and bounds validation of a raster,
@@ -19,23 +22,46 @@ import os
 import time
 
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from richdem_tpu_torch.provenance import logger
 
-__all__ = ["trace", "PhaseTimer", "check_raster"]
+__all__ = ["trace", "span", "SPANS", "PhaseTimer", "check_raster"]
 
 #: File name of the trace :func:`trace` writes into its directory.
 TRACE_FILE = "trace.json"
+#: The layer spans, one a layer, each opened by the entry that owns the
+#: layer's work: the fill (``ops.fill.fill_depressions_info``), D8 codes
+#: (``ops.flowdirs.d8_core``), D8 accumulation
+#: (``ops.accum.d8_accumulation_info``), slope and TWI
+#: (``ops.terrain.terrain_core``, ``methods.twi``), flow proportions
+#: (``ops.flowdirs.flow_proportions``) and multi-flow accumulation
+#: (``ops.mfd.mfd_accumulation``).
+SPANS = ("rd.fill", "rd.d8", "rd.accum", "rd.terrain", "rd.props",
+         "rd.mfd")
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context of layer span ``name`` (one of :data:`SPANS`): a
+    ``record_function`` while a profiler records, on the profiler's clock
+    and thread, else one shared null context, so that without a profiler
+    a span costs a flag check and touches neither the card nor memory.
+    A span nested in another owns what it launches."""
+    if name not in SPANS:
+        raise ValueError(f"unknown span {name!r}; expected one of {SPANS}")
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile a phase: ``with trace('/tmp/prof'): step(z)`` writes
     ``/tmp/prof/trace.json``; open it in Perfetto (ui.perfetto.dev).
-    The card's activity is recorded when CUDA is available."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    The card's activity is recorded when CUDA is available, and the
+    layer spans (:func:`span`) with the host ops."""
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -84,8 +110,6 @@ class PhaseTimer:
 def _first(bad, values):
     """(row, col, value as a numpy scalar, count) of the first True cell
     of ``bad`` in row-major order."""
-    import torch
-
     if torch.is_tensor(bad):
         idx = torch.nonzero(bad)[0]
         r, c = int(idx[0]), int(idx[1])
@@ -100,8 +124,6 @@ def check_raster(arr, name="raster", finite=True, lo=None, hi=None):
     Raises ``ValueError`` with the cell coordinates of the first offender,
     in the reference's words.  A tensor is checked where it lives; anything
     else as a numpy array.  Returns ``arr``."""
-    import torch
-
     if torch.is_tensor(arr):
         a, isfinite, less, greater = arr, torch.isfinite, torch.lt, torch.gt
     else:

@@ -28,6 +28,7 @@ import math
 import torch
 
 from richdem_tpu_torch import topology
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.fill import _require_converged, _rotation_cap
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor
 from richdem_tpu_torch.ops.successor import (effective_codes,
@@ -44,9 +45,10 @@ __all__ = ["twi", "spi", "watersheds_from_flowdirs", "upslope_cells",
 def twi(accum, slope_radians, cellsize=1.0, min_slope=1e-6):
     """Topographic wetness index ``ln(a / tan beta)``; ``a`` = specific
     catchment area = accumulation × cellsize."""
-    a = accum * cellsize
-    tanb = torch.clamp(torch.tan(slope_radians), min=min_slope)
-    return torch.log(torch.clamp(a, min=1e-30) / tanb)
+    with span("rd.terrain"):
+        a = accum * cellsize
+        tanb = torch.clamp(torch.tan(slope_radians), min=min_slope)
+        return torch.log(torch.clamp(a, min=1e-30) / tanb)
 
 
 def spi(accum, slope_radians, cellsize=1.0):

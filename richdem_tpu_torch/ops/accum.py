@@ -29,6 +29,7 @@ import torch
 
 from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import SWEEP_TILE, Kernel, stream_handle
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.dinf import (DINF_DEPTH, dinf_accumulation,
                                         dinf_two_tap)
 from richdem_tpu_torch.ops.fill import _require_converged, _rotation_cap
@@ -123,14 +124,15 @@ def d8_accumulation_info(flowdirs, weights, max_rotations=64,
     """GS rotations from ``A = w`` until a rotation changes nothing; returns
     ``(accum, rotations, converged)`` without raising.  Nodata codes (< 0)
     act as NO_FLOW; give them zero weight."""
-    fd = flowdirs.to(torch.int8).contiguous()
-    w = weights.to(torch.float32).contiguous()
-    perm = torch.as_tensor(PERM_TRANSPOSE, device=fd.device)
-    fd_t = perm[fd.clamp(min=0).long()].t().contiguous()
-    w_t = w.t().contiguous()
-    return accumulation_rotations(
-        w, lambda a, rev: sweep(a, w, fd, rev),
-        lambda a, rev: sweep(a, w_t, fd_t, rev), max_rotations)
+    with span("rd.accum"):
+        fd = flowdirs.to(torch.int8).contiguous()
+        w = weights.to(torch.float32).contiguous()
+        perm = torch.as_tensor(PERM_TRANSPOSE, device=fd.device)
+        fd_t = perm[fd.clamp(min=0).long()].t().contiguous()
+        w_t = w.t().contiguous()
+        return accumulation_rotations(
+            w, lambda a, rev: sweep(a, w, fd, rev),
+            lambda a, rev: sweep(a, w_t, fd_t, rev), max_rotations)
 
 
 def d8_accumulation(flowdirs, weights=None, no_data_mask=None,

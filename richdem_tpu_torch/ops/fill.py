@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from richdem_tpu_torch._build import Kernel, stream_handle
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.stencil import as_tensor, nodata_like
 from richdem_tpu_torch.ops.sweeps import (BIG, fill_fixpoint_core,
                                           fill_scan_fixpoint_core,
@@ -266,33 +267,34 @@ def fill_depressions_info(dem, nodata_mask=None, eps=0.0, max_iters=1024,
     flavour).  ``engine``: ``"folded"``, ``"scan"`` or None
     (:func:`fill_engine`).  Nodata cells drain and are returned
     unchanged."""
-    eng = fill_engine(engine)
-    z32 = dem.to(torch.float32)
-    h, wd = z32.shape
-    if nodata_mask is None:
-        nodata_mask = torch.zeros(z32.shape, dtype=torch.bool,
-                                  device=z32.device)
-    neg = torch.tensor(-BIG, dtype=torch.float32, device=z32.device)
-    if scale_diagonal:
-        if eps_diag is not None:
-            raise ValueError("give scale_diagonal or eps_diag, not both")
-        eps_diag = eps * math.sqrt(2.0)
-    eps_diag = None if eps_diag is None else _f32(eps_diag)
-    eps = _f32(eps)
-    if (w0 is None and eps_diag is None
-            and max(h, wd) >= MULTISCALE_MIN):
-        w0 = _coarse_warm_start(torch.where(nodata_mask, neg, z32), eps)
-    if w0 is None:
-        w0 = torch.full_like(z32, BIG)
-    floor = torch.where(nodata_mask, neg, z32).contiguous()
-    w0 = torch.where(nodata_mask, neg, w0.to(torch.float32)).contiguous()
-    if eng == "scan":
-        w, iters, done = fill_scan_fixpoint_core(w0, floor, eps, max_iters,
-                                                 fill_scan_sweep, eps_diag)
-    else:
-        w, iters, done = fill_fixpoint_core(w0, floor, eps, max_iters,
-                                            fill_sweep, eps_diag)
-    return torch.where(nodata_mask, z32, w), iters, done
+    with span("rd.fill"):
+        eng = fill_engine(engine)
+        z32 = dem.to(torch.float32)
+        h, wd = z32.shape
+        if nodata_mask is None:
+            nodata_mask = torch.zeros(z32.shape, dtype=torch.bool,
+                                      device=z32.device)
+        neg = torch.tensor(-BIG, dtype=torch.float32, device=z32.device)
+        if scale_diagonal:
+            if eps_diag is not None:
+                raise ValueError("give scale_diagonal or eps_diag, not both")
+            eps_diag = eps * math.sqrt(2.0)
+        eps_diag = None if eps_diag is None else _f32(eps_diag)
+        eps = _f32(eps)
+        if (w0 is None and eps_diag is None
+                and max(h, wd) >= MULTISCALE_MIN):
+            w0 = _coarse_warm_start(torch.where(nodata_mask, neg, z32), eps)
+        if w0 is None:
+            w0 = torch.full_like(z32, BIG)
+        floor = torch.where(nodata_mask, neg, z32).contiguous()
+        w0 = torch.where(nodata_mask, neg, w0.to(torch.float32)).contiguous()
+        if eng == "scan":
+            w, iters, done = fill_scan_fixpoint_core(w0, floor, eps, max_iters,
+                                                     fill_scan_sweep, eps_diag)
+        else:
+            w, iters, done = fill_fixpoint_core(w0, floor, eps, max_iters,
+                                                fill_sweep, eps_diag)
+        return torch.where(nodata_mask, z32, w), iters, done
 
 
 def _require_converged(done, what, cap):

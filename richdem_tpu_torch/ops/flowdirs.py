@@ -36,6 +36,7 @@ import torch
 
 from richdem_tpu_torch import topology as topo
 from richdem_tpu_torch._build import Kernel, stream_handle
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
 
 __all__ = ["D8", "RHO8", "d8_plain", "d8_core", "d8_flowdirs",
@@ -123,18 +124,19 @@ def d8_core(z, nodata_mask, cellsize=1.0, topology="D8"):
     """D8/D4 codes (int8) of ``z`` with its nodata mask.  A CUDA tensor
     launches ``csrc/d8.cu`` (raising if it cannot be built or launched); a
     CPU tensor runs :func:`d8_plain`."""
-    _check_topology(topology)
-    if not z.is_cuda:
-        return d8_plain(z, nodata_mask, cellsize, topology)
-    z, nodata_mask = _stencil_inputs(z, nodata_mask)
-    h, w = z.shape
-    out = torch.empty(z.shape, dtype=torch.int8, device=z.device)
-    if h == 0 or w == 0:
+    with span("rd.d8"):
+        _check_topology(topology)
+        if not z.is_cuda:
+            return d8_plain(z, nodata_mask, cellsize, topology)
+        z, nodata_mask = _stencil_inputs(z, nodata_mask)
+        h, w = z.shape
+        out = torch.empty(z.shape, dtype=torch.int8, device=z.device)
+        if h == 0 or w == 0:
+            return out
+        D8.launch(z.data_ptr(), nodata_mask.data_ptr(), out.data_ptr(), h, w,
+                  _distance(1, cellsize), _distance(2, cellsize),
+                  int(topology == "D4"), stream_handle(z.device))
         return out
-    D8.launch(z.data_ptr(), nodata_mask.data_ptr(), out.data_ptr(), h, w,
-              _distance(1, cellsize), _distance(2, cellsize),
-              int(topology == "D4"), stream_handle(z.device))
-    return out
 
 
 def stencil_tile_shape():
@@ -448,31 +450,32 @@ def flow_proportions(dem, method="D8", no_data=None, exponent=None,
     ``FlowProportions``.  ``dem``: a tensor (the work runs where it lives)
     or an array (moved to ``device``).  ``seed`` keys Rho8's stream;
     ``key`` must be ``None``, as in :func:`rho8_flowdirs`."""
-    _no_key(key)
-    z = as_tensor(dem, device)
-    m = method.lower()
-    if m in ("d8", "ocallaghan", "d4"):
-        topology = "D4" if m == "d4" else "D8"
-        return proportions_from_d8(d8_flowdirs(z, no_data, topology,
-                                               cellsize))
-    if m in ("rho8", "rho4"):
-        topology = "D4" if m == "rho4" else "D8"
-        return proportions_from_d8(rho8_flowdirs(z, no_data, seed=seed,
-                                                 topology=topology,
-                                                 cellsize=cellsize))
-    if m in ("dinf", "tarboton"):
-        return proportions_from_dinf(dinf_flowdirs(z, no_data, cellsize))
-    mask = nodata_like(z, no_data)
-    if m == "quinn":
-        return _mfd_impl(z, mask, cellsize, 1.0)
-    if m == "freeman":
-        return _mfd_impl(z, mask, cellsize,
-                         1.1 if exponent is None else float(exponent))
-    if m == "holmgren":
-        if exponent is None:
-            raise ValueError("Holmgren requires an exponent")
-        return _mfd_impl(z, mask, cellsize, float(exponent))
-    if m in ("seibertmcglynn", "md_infinity", "mdinf"):
-        return _seibert_impl(z, mask, cellsize,
-                             1.0 if exponent is None else float(exponent))
-    raise ValueError(f"unknown flow metric: {method!r}")
+    with span("rd.props"):
+        _no_key(key)
+        z = as_tensor(dem, device)
+        m = method.lower()
+        if m in ("d8", "ocallaghan", "d4"):
+            topology = "D4" if m == "d4" else "D8"
+            return proportions_from_d8(d8_flowdirs(z, no_data, topology,
+                                                   cellsize))
+        if m in ("rho8", "rho4"):
+            topology = "D4" if m == "rho4" else "D8"
+            return proportions_from_d8(rho8_flowdirs(z, no_data, seed=seed,
+                                                     topology=topology,
+                                                     cellsize=cellsize))
+        if m in ("dinf", "tarboton"):
+            return proportions_from_dinf(dinf_flowdirs(z, no_data, cellsize))
+        mask = nodata_like(z, no_data)
+        if m == "quinn":
+            return _mfd_impl(z, mask, cellsize, 1.0)
+        if m == "freeman":
+            return _mfd_impl(z, mask, cellsize,
+                             1.1 if exponent is None else float(exponent))
+        if m == "holmgren":
+            if exponent is None:
+                raise ValueError("Holmgren requires an exponent")
+            return _mfd_impl(z, mask, cellsize, float(exponent))
+        if m in ("seibertmcglynn", "md_infinity", "mdinf"):
+            return _seibert_impl(z, mask, cellsize,
+                                 1.0 if exponent is None else float(exponent))
+        raise ValueError(f"unknown flow metric: {method!r}")

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from richdem_tpu_torch._build import (FLOW_HALO, FLOW_TILE, Kernel,
                                       stream_handle)
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.stencil import as_tensor
 from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
@@ -218,21 +219,22 @@ def mfd_accumulation(props, weights=None, no_data_mask=None,
     to ``device``, as are array weights and masks).  A plane-major stack
     seen as ``(H, W, 8)``, as :func:`~richdem_tpu_torch.ops.flowdirs.
     flow_proportions` returns it, is read without a copy."""
-    props = as_tensor(props, device)
-    planes = props.permute(2, 0, 1).to(torch.float32).contiguous()
-    h, wd = planes.shape[1:]
-    if weights is None:
-        weights = torch.ones((h, wd), dtype=torch.float32,
-                             device=planes.device)
-    weights = as_tensor(weights, planes.device).to(torch.float32)
-    if no_data_mask is not None:
-        no_data_mask = as_tensor(no_data_mask, planes.device)
-        weights = torch.where(no_data_mask, 0.0, weights)
-    acc, rotations, done = mfd_accumulation_info(planes, weights,
-                                                 max_rotations, depth)
-    _require_converged(done, "multi-flow accumulation", max_rotations)
-    if no_data_mask is not None:
-        acc = torch.where(no_data_mask, 0.0, acc)
-    if return_info:
-        return acc, rotations, done
-    return acc
+    with span("rd.mfd"):
+        props = as_tensor(props, device)
+        planes = props.permute(2, 0, 1).to(torch.float32).contiguous()
+        h, wd = planes.shape[1:]
+        if weights is None:
+            weights = torch.ones((h, wd), dtype=torch.float32,
+                                 device=planes.device)
+        weights = as_tensor(weights, planes.device).to(torch.float32)
+        if no_data_mask is not None:
+            no_data_mask = as_tensor(no_data_mask, planes.device)
+            weights = torch.where(no_data_mask, 0.0, weights)
+        acc, rotations, done = mfd_accumulation_info(planes, weights,
+                                                     max_rotations, depth)
+        _require_converged(done, "multi-flow accumulation", max_rotations)
+        if no_data_mask is not None:
+            acc = torch.where(no_data_mask, 0.0, acc)
+        if return_info:
+            return acc, rotations, done
+        return acc

@@ -24,6 +24,7 @@ import math
 import torch
 
 from richdem_tpu_torch._build import Kernel, stream_handle
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
 
 __all__ = ["TERRAIN_ATTRIBUTES", "TERRAIN", "terrain_core", "terrain_plain",
@@ -57,51 +58,52 @@ def terrain_core(z, nodata_mask, zscale, cellsize, attrib,
 
     ``riserun(fx, fy)``: the gradient norm (``hypot``, as the reference's
     ``terrain_core``)."""
-    if attrib not in TERRAIN_ATTRIBUTES:
-        raise ValueError(f"unknown terrain attribute {attrib!r}; "
-                         f"expected one of {TERRAIN_ATTRIBUTES}")
-    dev = z.device
+    with span("rd.terrain"):
+        if attrib not in TERRAIN_ATTRIBUTES:
+            raise ValueError(f"unknown terrain attribute {attrib!r}; "
+                             f"expected one of {TERRAIN_ATTRIBUTES}")
+        dev = z.device
 
-    def t(x):  # a device scalar, so divisions stay true divisions
-        return torch.tensor(x, dtype=torch.float32, device=dev)
+        def t(x):  # a device scalar, so divisions stay true divisions
+            return torch.tensor(x, dtype=torch.float32, device=dev)
 
-    compute = z.to(torch.float32) * t(zscale)
-    L = t(cellsize)
-    a, b, c, d, e, f, g, h, i = _window(compute, nodata_mask)
-    fx = ((c + 2 * f + i) - (a + 2 * d + g)) / (8 * L)
-    fy = ((g + 2 * h + i) - (a + 2 * b + c)) / (8 * L)
+        compute = z.to(torch.float32) * t(zscale)
+        L = t(cellsize)
+        a, b, c, d, e, f, g, h, i = _window(compute, nodata_mask)
+        fx = ((c + 2 * f + i) - (a + 2 * d + g)) / (8 * L)
+        fy = ((g + 2 * h + i) - (a + 2 * b + c)) / (8 * L)
 
-    if attrib == "slope_riserun":
-        out = riserun(fx, fy)
-    elif attrib == "slope_percentage":
-        out = 100.0 * riserun(fx, fy)
-    elif attrib == "slope_radians":
-        out = torch.atan(riserun(fx, fy))
-    elif attrib == "slope_degrees":
-        out = torch.rad2deg(torch.atan(riserun(fx, fy)))
-    elif attrib == "aspect":
-        flat = (fx == 0) & (fy == 0)
-        out = torch.where(flat, t(-1.0),
-                          torch.rad2deg(torch.atan2(-fx, fy)) % 360.0)
-    else:
-        D = ((d + f) / t(2.0) - e) / (L * L)
-        E = ((b + h) / t(2.0) - e) / (L * L)
-        F = (-a + c + g - i) / (t(4.0) * L * L)
-        G = (-d + f) / (t(2.0) * L)
-        H = (b - h) / (t(2.0) * L)
-        g2h2 = G * G + H * H
-        den = torch.clamp(g2h2, min=1e-30)
-        if attrib == "curvature":
-            out = -2.0 * (D + E) * 100.0
-        elif attrib == "planform_curvature":
-            out = torch.where(
-                g2h2 == 0.0, t(0.0),
-                2.0 * (D * H * H + E * G * G - F * G * H) / den * 100.0)
-        else:  # profile_curvature
-            out = torch.where(
-                g2h2 == 0.0, t(0.0),
-                -2.0 * (D * G * G + E * H * H + F * G * H) / den * 100.0)
-    return torch.where(nodata_mask, t(math.nan), out)
+        if attrib == "slope_riserun":
+            out = riserun(fx, fy)
+        elif attrib == "slope_percentage":
+            out = 100.0 * riserun(fx, fy)
+        elif attrib == "slope_radians":
+            out = torch.atan(riserun(fx, fy))
+        elif attrib == "slope_degrees":
+            out = torch.rad2deg(torch.atan(riserun(fx, fy)))
+        elif attrib == "aspect":
+            flat = (fx == 0) & (fy == 0)
+            out = torch.where(flat, t(-1.0),
+                              torch.rad2deg(torch.atan2(-fx, fy)) % 360.0)
+        else:
+            D = ((d + f) / t(2.0) - e) / (L * L)
+            E = ((b + h) / t(2.0) - e) / (L * L)
+            F = (-a + c + g - i) / (t(4.0) * L * L)
+            G = (-d + f) / (t(2.0) * L)
+            H = (b - h) / (t(2.0) * L)
+            g2h2 = G * G + H * H
+            den = torch.clamp(g2h2, min=1e-30)
+            if attrib == "curvature":
+                out = -2.0 * (D + E) * 100.0
+            elif attrib == "planform_curvature":
+                out = torch.where(
+                    g2h2 == 0.0, t(0.0),
+                    2.0 * (D * H * H + E * G * G - F * G * H) / den * 100.0)
+            else:  # profile_curvature
+                out = torch.where(
+                    g2h2 == 0.0, t(0.0),
+                    -2.0 * (D * G * G + E * H * H + F * G * H) / den * 100.0)
+        return torch.where(nodata_mask, t(math.nan), out)
 
 
 _P = ctypes.c_void_p

@@ -4,7 +4,9 @@
 times; ``check_raster`` the reference's messages for the same raster, as a
 numpy array or as a tensor; ``trace`` writes a Chrome-format trace that
 Perfetto opens.  ``all_neighbors`` and ``neighbor_distances`` are bitwise
-the reference's.
+the reference's.  The layer spans open at their entries, once each and
+nested only where one entry calls another, while a profiler records; they
+cost a shared null context without one, and change no output.
 """
 
 import json
@@ -15,6 +17,7 @@ import torch
 
 from richdem_tpu import debug as jdebug
 from richdem_tpu_torch import debug as tdebug
+from richdem_tpu_torch import synth as tsynth
 
 torch.set_num_threads(1)
 
@@ -94,3 +97,124 @@ def test_stencil_helpers_match_jax():
         want = np.asarray(jstencil.neighbor_distances(cellsize, dtype))
         assert got.numpy().dtype == want.dtype
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _d8_pipeline(z):
+    import richdem_tpu_torch as rt
+
+    out = rt.terrain_pipeline(z, eps=0.0, with_twi=True)
+    return [out[k] for k in ("filled", "flowdirs", "accum", "slope", "twi")]
+
+
+def _quinn(z):
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops.fill import fill_depressions_info
+
+    filled, _, done = fill_depressions_info(z, eps=1e-2, max_iters=256)
+    assert done
+    props = rt.flow_proportions(filled, "Quinn")
+    acc, _, done = rt.flow_accumulation_from_props(props, return_info=True)
+    assert done
+    return [filled, props, acc]
+
+
+def _d8_props(z):
+    import richdem_tpu_torch as rt
+
+    return [rt.flow_proportions(z, "D8")]
+
+
+#: Each path, the spans it opens (name: count) and the (outer, inner)
+#: pairs of spans nested one in the other.
+PATHS = {"d8_pipeline": (_d8_pipeline, {"rd.fill": 1, "rd.d8": 1,
+                                        "rd.accum": 1, "rd.terrain": 2},
+                         set()),
+         "quinn": (_quinn, {"rd.fill": 1, "rd.props": 1, "rd.mfd": 1},
+                   set()),
+         "d8_props": (_d8_props, {"rd.props": 1, "rd.d8": 1},
+                      {("rd.props", "rd.d8")})}
+
+
+def _dem():
+    return tsynth.perlin_dem(24, 40, seed=3, device="cpu")
+
+
+def _profiled_spans(path, tmp_path):
+    """The ``rd.*`` spans a profiled call of ``path`` leaves in its Chrome
+    trace, and the call's outputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    z = _dem()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = path(z)
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("rd.")]
+    return spans, out
+
+
+@pytest.mark.parametrize("name", sorted(PATHS))
+def test_entries_open_their_layer_spans(name, tmp_path):
+    path, counts, nested = PATHS[name]
+    spans, _ = _profiled_spans(path, tmp_path)
+    got = {}
+    for s in spans:
+        got[s["name"]] = got.get(s["name"], 0) + 1
+    assert got == counts
+    pairs = {(a["name"], b["name"]) for a in spans for b in spans
+             if a is not b and a["ts"] <= b["ts"]
+             and b["ts"] + b["dur"] <= a["ts"] + a["dur"]}
+    assert pairs == nested
+
+
+@pytest.mark.parametrize("name", sorted(PATHS))
+def test_outputs_are_bitwise_with_the_profiler_on_and_off(name, tmp_path):
+    path = PATHS[name][0]
+    _, traced = _profiled_spans(path, tmp_path)
+    plain = path(_dem())
+    assert len(traced) == len(plain)
+    for a, b in zip(traced, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_without_a_profiler_a_span_is_one_null_context(monkeypatch,
+                                                       tmp_path):
+    """No profiler: every span is the one shared null context and no
+    ``record_function`` is entered; with one, each span is entered."""
+    from torch.profiler import record_function
+
+    entered = []
+
+    def counting(name):
+        entered.append(name)
+        return record_function(name)
+
+    monkeypatch.setattr(tdebug, "record_function", counting)
+    null = tdebug.span(tdebug.SPANS[0])
+    assert all(tdebug.span(n) is null for n in tdebug.SPANS)
+    _d8_pipeline(_dem())
+    assert entered == []
+    _profiled_spans(_d8_pipeline, tmp_path)
+    assert sorted(entered) == sorted(["rd.fill", "rd.d8", "rd.accum",
+                                      "rd.terrain", "rd.terrain"])
+
+
+@pytest.mark.parametrize("name", ["rd.nope", "perfbench.window", ""])
+def test_an_unknown_span_raises(name):
+    with pytest.raises(ValueError, match="unknown span"):
+        tdebug.span(name)
+
+
+def test_every_reader_reads_spans_the_program_opens():
+    """A renamed span fails here, not only on the card: each benchmark
+    reader's ``SPANS`` lies within the program's."""
+    from perfbench import registry
+
+    readers = [registry.metric_reader(n) for n in registry.listed("metrics")]
+    read = [r.SPANS for r in readers if hasattr(r, "SPANS")]
+    assert read
+    for names in read:
+        assert names and set(names) <= set(tdebug.SPANS), names

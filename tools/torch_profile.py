@@ -101,8 +101,9 @@ whose device record the trace lacks (count and host ms: a path traced
 after another in one process has lost the record of its one large
 pageable host→card copy, so ``api`` is traced first), and device time and
 launch count by group: each of the port's eleven kernels by its CUDA
-function name, the rest by the name of the PyTorch kernel (up to 14
-groups).  The card's
+function name (``perfbench.tracing.PORT_KERNELS``, whose ``group`` and
+``busy_us`` the summary uses), the rest by the name of the PyTorch kernel
+(up to 14 groups).  The card's
 ``name, power.limit`` comes first.  Imports nothing of JAX.
 """
 
@@ -120,18 +121,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 MAIN = 10240
-#: CUDA function name (as the trace shows it) → kernel of the port
-PORT_KERNELS = {"fill_sweep_kernel": "fill_sweep",
-                # rd::tile::kernel, instantiated per stencil op
-                "D8Op": "d8", "TerrainOp": "terrain", "Rho8Op": "rho8",
-                "accum_sweep_kernel": "accum_sweep",
-                # seam_walk_kernel, instantiated per rule
-                "DistSweep": "dist_sweep",
-                # flow_sweep_kernel, instantiated per field
-                "DinfField": "dinf_sweep", "MfdField": "mfd_sweep",
-                "ResolveSweep": "resolve_sweep",
-                "Strahler": "strahler_sweep",
-                "fill_scan_kernel": "fill_scan"}
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
          "rho8", "api", "depths", "scan_widths", "sweep_rows", "flow_tiles",
          "walk_tiles", "resolve_tiles", "stencils")
@@ -168,30 +157,12 @@ FLOW_TILES = ((128, 32), (256, 32), (512, 32), (128, 64), (256, 64),
               (512, 64))
 
 
-def _group(name):
-    for fn, kernel in PORT_KERNELS.items():
-        if fn in name:
-            return kernel
-    return name[:90]
-
-
-def _busy_us(events):
-    """Length of the union of the [ts, ts + dur) intervals."""
-    total, end = 0.0, None
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
-        if end is None or ts > end:
-            total += dur
-            end = ts + dur
-        elif ts + dur > end:
-            total += ts + dur - end
-            end = ts + dur
-    return total
-
-
 def trace(name, fn, out_dir):
     """Warm up, trace one call of ``fn``, and summarise the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.tracing import busy_us, group
 
     fn()
     torch.cuda.synchronize()
@@ -216,10 +187,10 @@ def trace(name, fn, out_dir):
             and e.get("args", {}).get("correlation") not in copied]
     groups = defaultdict(lambda: [0.0, 0])
     for e in events:
-        g = groups[_group(e.get("name", ""))]
+        g = groups[group(e.get("name", ""))]
         g[0] += e["dur"]
         g[1] += 1
-    busy = _busy_us(events)
+    busy = busy_us(events)
     top = sorted(groups.items(), key=lambda kv: -kv[1][0])
     return {"path": name, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us, "events": len(events),
