@@ -9,8 +9,10 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 Phases, one line each (any failure raises: non-zero exit, no final line):
 
 1. device — the card's ``name, power.limit`` from nvidia-smi;
-2. build — compiles the eleven kernels from ``richdem_tpu_torch/csrc`` and
-   the port's native engine, all at once (or loads them when the libraries
+2. build — compiles the eleven kernel sources from
+   ``richdem_tpu_torch/csrc`` (twelve kernels: the multi-flow sweep's
+   library also holds the topological pass) and the port's native engine,
+   all at once (or loads them when the libraries
    are newer than the sources), and reads each kernel's registers and
    spills from ``ptxas``'s report and the launch shapes of the scan
    sweep, the walk's sweeps and the stencil kernels' tile;
@@ -19,7 +21,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    sweep in every mode, the terrain kernel for all 8 attributes, the D∞ and
    multi-flow sweeps at depths 1, 8 and 0, down and transposed up (at 1
    and 8 against the plain sweep over whole rows: the kernels' tile seams
-   are exact), Rho8
+   are exact), the multi-flow topological pass with unit and float
+   weights (bitwise, and the same bits on a second call), Rho8
    and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
    transposed up and their fixpoints; the distance, resolve and Strahler
    sweeps against the plain sweeps over whole rows); Rho8's diagonal share
@@ -55,7 +58,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 9. config 4 (``BASELINE.json``; ``bench.py``'s ``dinf_twi`` and
    ``quinn_mfd``) at 10240²: ε = 1e-2 fill → D∞ angles → D∞ accumulation →
    slope → TWI, and ε = 1e-2 fill → Quinn proportions → multi-flow
-   accumulation; each converged, mass-conserving, its kernels launched;
+   accumulation (one topological pass, ``csrc/flow_topo.cuh``, and no
+   sweep); each converged, mass-conserving, its kernels launched;
    three timed steps, the peak memory, the accumulation's rotations and
    the depth;
 10. d8_methods at 10240²: config 2's step, then watershed labels,
@@ -81,7 +85,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 13. kernels at the paths' shapes — each kernel against its plain version at
    10240² (fill also at the 1280² multigrid coarse grid, fill,
    accumulation, distance, D∞, multi-flow, resolve and Strahler sweeps also
-   transposed; the scan sweep down on the api DEM at its ε), then one call
+   transposed; the scan sweep down on the api DEM at its ε; the multi-flow
+   topological pass on config 4's Quinn planes, also bitwise the path's
+   own accumulation), then one call
    of each timed beside its bound, with each sweep's time per row step and
    each kernel's registers and spill bytes a thread from the build's
    ``-Xptxas -v`` report, the scan sweep's cluster and the tiles of the
@@ -113,7 +119,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    peak; the two-pass fill and accumulation on the mesh (two data passes
    each, bitwise the Schwarz fill at ε = 0 and the Schwarz accumulation);
    Quinn accumulation at ``SHARDED_MFD_EDGE``² within rtol 2e-5, atol 1e-4
-   of the in-core one, mass conserved; ``dryrun_multichip(4)`` (an uneven
+   of the in-core accumulation (the topological pass) and of the in-core
+   sweeps (``mfd_accumulation_info``, the solve each shard runs), mass
+   conserved; ``dryrun_multichip(4)`` (an uneven
    509×1019 DEM, pad and crop); the pipeline through a one-rank NCCL group
    at 2048², bitwise the in-process mesh; then the seven kernels of these
    paths against their plain versions and timed beside their bounds at the
@@ -122,7 +130,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    multi-flow sweeps).
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; the two-pass programs are two paths (``twopass_fill``,
+after (the topological pass, ``mfd.MFD_TOPO``, an entry point of the
+multi-flow sweep's library, has a record of its own, ``mfd_topo``); the two-pass programs are two paths (``twopass_fill``,
 ``twopass_accum``), whose launches and tile-width times each of their
 kernels' records carries under ``twopass``, and the sharded phase three
 (``sharded``, ``sharded_twopass``, ``sharded_mfd``), whose launches and
@@ -221,6 +230,9 @@ ISSUE_PER_CLOCK = {"fp32": 128, "int32": 64, "xu": 16}
 #:               8 taps (compare, select), 8 multiplies, 8 adds
 #:   mfd_sweep   acc, w, 8 planes in, acc out (4+4+32+4); 8 multiplies and
 #:               8 adds, 3 doubling steps of 2 chains (3 each), closure 6
+#:   mfd_topo    w, 8 planes in, acc out (4+32+4); 8 multiplies and 8 adds
+#:               (its counters, in-share records and level list are its
+#:               own scratch, not counted)
 #:   rho8        z, mask in, code out (4+1+1); int32: the counter's two
 #:               words from the flat index 2, Philox4x32-10 37 (18 wide
 #:               multiplies and 19 three-input xors: round 1 multiplies
@@ -246,7 +258,7 @@ ISSUE_PER_CLOCK = {"fp32": 128, "int32": 64, "xu": 16}
 #: operations); its int32 operations bound rho8.
 COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
         "dist_sweep": (13, 9), "terrain": (9, 40), "dinf_sweep": (16, 36),
-        "mfd_sweep": (44, 40),
+        "mfd_sweep": (44, 40), "mfd_topo": (40, 16),
         "rho8": (6, {"int32": 40, "xu": 1, "fp32": 41}),
         "rho8_d4": (6, 12), "resolve_sweep": (9, 4),
         "strahler_sweep": (9, 52), "fill_scan": (12, 100)}
@@ -290,15 +302,19 @@ REPLACES = {
     "mfd_sweep": ("richdem_tpu/ops/pallas_scan.py:515",
                   ["richdem_tpu/ops/pallas_mfd.py:49",
                    "richdem_tpu/ops/pallas_mfd.py:290"]),
+    "mfd_topo": ("no TPU kernel", None),
     "rho8": ("richdem_tpu/ops/pallas_stencils.py:119", None),
     "resolve_sweep": ("richdem_tpu/ops/pallas_folded.py:606", None),
     "strahler_sweep": ("richdem_tpu/ops/pallas_folded.py:729", None),
     "fill_scan": ("richdem_tpu/ops/pallas_scan.py:876", None),
 }
-#: The path whose launch counts each kernel's record reports.
+#: The path whose launch counts each kernel's record reports: the
+#: multi-flow sweep's is the sharded one, as the in-core path takes the
+#: topological pass.
 PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "dist_sweep": "config2", "terrain": "terrain",
-           "dinf_sweep": "dinf_twi", "mfd_sweep": "quinn_mfd",
+           "dinf_sweep": "dinf_twi", "mfd_sweep": "sharded_mfd",
+           "mfd_topo": "quinn_mfd",
            "rho8": "rho8", "resolve_sweep": "d8_methods",
            "strahler_sweep": "d8_methods", "fill_scan": "api"}
 #: Kernels redesigned since their port, and in which PR: the row-ring fill
@@ -313,6 +329,20 @@ REDESIGNED = {"fill_sweep": 6, "accum_sweep": 6, "d8": 7, "mfd_sweep": 7,
               "dinf_sweep": 7, "fill_scan": 8, "resolve_sweep": 8,
               "dist_sweep": 9, "strahler_sweep": 9, "terrain": 10,
               "rho8": 10}
+#: The record of a second entry point of a source, by its C symbol: the
+#: topological pass is built in the multi-flow sweep's library.
+ENTRY_RECORDS = {"rd_mfd_topo": "mfd_topo"}
+#: Its entry functions, which share that library's ptxas report, are the
+#: ones in namespace rd::topo (this, in their mangled names).
+TOPO_MANGLED = "2rd4topo"
+
+
+def kname(kernel):
+    """The name of a kernel's record: its source's, or that of its entry
+    point where a source has two (ENTRY_RECORDS)."""
+    return ENTRY_RECORDS.get(kernel.symbol, kernel.name)
+
+
 #: D∞ and multi-flow sweeps held against their plain versions at 1000×1100
 FLOW_DEPTHS = (1, 8, 0)
 #: Depths at which those sweeps are held against the plain sweep over whole
@@ -575,6 +605,22 @@ def flow_sweep_pair(name, acc, w, field, field_t, depth, err, what):
             f"{what}, depth {depth}, transposed up, plain over {rule}")
 
 
+def topo_pair(planes, w, err, what):
+    """The multi-flow topological pass and its plain version over the same
+    planes and weights: every cell solved, bitwise, and the kernel's
+    second call the same bits; returns the kernel's result."""
+    from richdem_tpu_torch.ops import mfd
+
+    (got, left), (again, _) = mfd.mfd_topo(planes, w), mfd.mfd_topo(planes,
+                                                                    w)
+    ref, left_p = mfd.mfd_topo_plain(planes, w)
+    if left or left_p:
+        raise AssertionError(f"mfd_topo ({what}): {left} cells left by the "
+                             f"kernel, {left_p} by the plain version")
+    bitwise("mfd_topo", ((got, ref), (again, got)), err, what)
+    return got
+
+
 def absorbed_mass(acc, props):
     """Mass that leaves the raster or stops, in float64: each cell keeps
     ``acc`` times its share toward no neighbour on the grid.  At the
@@ -675,7 +721,7 @@ def run_path(name, kernels, needed, fn):
         k.launches = 0
     result = fn()
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = {kname(k): k.launches for k in kernels}
     missing = [n for n in needed if launches[n] <= 0]
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: "
@@ -726,7 +772,7 @@ def phase_build(kernels):
         jobs.append(pool.submit(native._load))
         for job in jobs:
             job.result()
-    RESOURCES.update({k.name: kernel_resources(k) for k in kernels})
+    RESOURCES.update({kname(k): kernel_resources(k) for k in kernels})
     from richdem_tpu_torch.ops import fill, flats, flowdirs, successor
     SHAPES["fill_scan"] = fill.fill_scan_shape(MAIN)
     SHAPES["resolve_sweep"] = successor.resolve_shape()
@@ -741,7 +787,7 @@ def phase_build(kernels):
                                  "strahler_sweep", "d8", "rho8", "terrain")))
     log("build", f"{len(kernels)} kernels and the native engine loaded in "
         f"{time.perf_counter() - t0:.2f} s ("
-        + ", ".join(f"{k.name} " + ("cached" if k.build_seconds is None
+        + ", ".join(f"{kname(k)} " + ("cached" if k.build_seconds is None
                                     else f"built {k.build_seconds:.2f} s")
                     for k in kernels)
         + ")")
@@ -878,6 +924,12 @@ def phase_kernel_vs_plain(dev, err):
     log("kernel-vs-plain", f"D∞ and multi-flow (Quinn) sweeps at depths "
         f"{FLOW_DEPTHS}, down and transposed up: bitwise (at depths "
         f"{WHOLE_ROW_DEPTHS} to the plain sweep over whole rows)")
+    planes = fields["mfd_sweep"][0]
+    for what, wt in (("unit", ones), ("float", torch.where(mask, 0.0, wf))):
+        topo_pair(planes, wt, err, f"{shape}, {what} weights")
+    log("kernel-vs-plain", "multi-flow (Quinn) topological pass, unit and "
+        "float weights, nodata holes: every cell solved, bitwise, the same "
+        "bits twice")
 
     terrain_attributes(z, mask, 2.0, 3.0, err,
                        f"{shape}, zscale 2, cellsize 3")
@@ -1059,8 +1111,8 @@ def phase_native_flow(dev):
     acc, rot, done = mfd.mfd_accumulation(props, return_info=True)
     rel, mass = held("Quinn", acc, native.accum_props(
         props.cpu().numpy().astype(np.float64)))
-    log("native", f"Quinn accumulation {h}x{w} (eps=1e-2 fill, depth "
-        f"{mfd.MFD_DEPTH}): within rtol 2e-5 of native (max rel {rel:.3e}, "
+    log("native", f"Quinn accumulation {h}x{w} (eps=1e-2 fill, the "
+        f"topological pass): within rtol 2e-5 of native (max rel {rel:.3e}, "
         f"mass {mass:.3e}), {rot} rotations")
 
     filled = filled_of(22)
@@ -1348,15 +1400,23 @@ def phase_config4(dev, card, kernels, z):
     for name, step, needed, depth in (
             ("dinf_twi", dinf_twi_step,
              ("fill_sweep", "dinf_sweep", "terrain"), dinf.DINF_DEPTH),
-            ("quinn_mfd", quinn_mfd_step, ("fill_sweep", "mfd_sweep"),
+            ("quinn_mfd", quinn_mfd_step, ("fill_sweep", "mfd_topo"),
              mfd.MFD_DEPTH)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         out, launches[name] = run_path(name, kernels, needed,
                                        lambda: step(z))
+        topo = launches[name]["mfd_topo"]
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         if not out["converged"]:
             raise AssertionError(f"{name}: accumulation not converged")
+        # Quinn's shares go downhill: one topological pass solves them
+        # (csrc/flow_topo.cuh), with no rotation of the sweep
+        if name == "quinn_mfd" and (topo != 1 or out["rotations"] != 0
+                                    or launches[name]["mfd_sweep"] != 0):
+            raise AssertionError(f"quinn_mfd: {topo} topological passes, "
+                                 f"{out['rotations']} rotations, "
+                                 f"{launches[name]['mfd_sweep']} sweeps")
         for key in ("accum", "twi"):
             x = out.get(key)
             if x is not None and (tuple(x.shape) != (MAIN, MAIN) or not bool(
@@ -1372,7 +1432,9 @@ def phase_config4(dev, card, kernels, z):
             raise AssertionError(f"{name} is not deterministic")
         log(name, f"{MAIN}x{MAIN} Perlin seed 0, eps=1e-2: fill rotations "
             f"{out['fill_iters']}, accumulation rotations "
-            f"{out['rotations']} at depth {depth}; {STEPS} steps after one "
+            f"{out['rotations']} at depth {depth}"
+            + (f" ({topo} topological pass)" if topo else "")
+            + f"; {STEPS} steps after one "
             f"warm-up: {ev_secs} s (CUDA events), {host_secs} s (host); "
             f"best {n / min(ev_secs):.4e} cells/s; peak allocated "
             f"{peak_gib:.3f} GiB (warm-up step, DEM included) on [{card}]; "
@@ -1405,10 +1467,14 @@ def phase_terrain(dev, card, z, kernels):
 
 def kernel_resources(kernel):
     """Registers and spill bytes a thread of ``kernel``, the largest over
-    its entries, from the build's ``-Xptxas -v`` report."""
-    entries = kernel.resources()
+    its entries, from the build's ``-Xptxas -v`` report (the topological
+    pass's entries, TOPO_MANGLED, apart from the multi-flow sweep's)."""
+    topo = kname(kernel) == "mfd_topo"
+    entries = {e: v for e, v in kernel.resources().items()
+               if (TOPO_MANGLED in e) == topo}
     if not entries:
-        raise AssertionError(f"no ptxas report of {kernel.name}'s entries")
+        raise AssertionError(f"no ptxas report of {kname(kernel)}'s "
+                             "entries")
     return {key: max(e[key] for e in entries.values())
             for key in ("registers", "spill_stores", "spill_loads")}
 
@@ -1545,7 +1611,10 @@ def phase_timing(dev, card, out, z, err, times):
 def phase_flow_timing(dev, card, c4, err, times):
     """The D∞ and multi-flow sweeps against their plain versions on the
     config-4 paths' own fields at 10240² (a down sweep and a transposed up
-    sweep at the default depth), then one call of each timed."""
+    sweep at the default depth), then one call of each timed; the
+    multi-flow topological pass on the Quinn path's planes timed beside
+    its plain version, then held bitwise to it and to the path's own
+    accumulation."""
     import torch
     from richdem_tpu_torch.ops import dinf, mfd
 
@@ -1560,6 +1629,20 @@ def phase_flow_timing(dev, card, c4, err, times):
                     lambda: plain(ones, ones, field, False, depth), card,
                     times, f"{MAIN}x{MAIN}, depth {depth}, on the config-4 "
                     "path's field (bitwise to plain down and transposed up)")
+    planes = fields["mfd_sweep"][0]
+    ref, left_p = time_kernel(
+        "mfd_topo", lambda: mfd.mfd_topo(planes, ones),
+        lambda: mfd.mfd_topo_plain(planes, ones), card, times,
+        f"{MAIN}x{MAIN}, on the config-4 path's Quinn planes")
+    got, left = mfd.mfd_topo(planes, ones)
+    if left or left_p:
+        raise AssertionError(f"mfd_topo at {MAIN}x{MAIN}: {left} cells left "
+                             f"by the kernel, {left_p} by the plain version")
+    bitwise("mfd_topo", ((got, ref), (c4["quinn_mfd"]["accum"], got)), err,
+            f"{MAIN}x{MAIN}, config 4's Quinn planes")
+    log("timing", f"mfd_topo at {MAIN}x{MAIN} on config 4's Quinn planes: "
+        "every cell solved, bitwise its plain version and the path's own "
+        "accumulation")
 
 
 def gauge_seeds(acc, k=GAUGES):
@@ -2315,8 +2398,9 @@ def phase_sharded(dev, card, kernels, err, main_best):
     timed; the two-pass fill and accumulation on the same mesh, two data
     passes each, bitwise the Schwarz fill at ε = 0 and the Schwarz
     accumulation (below 2²⁴; TWOPASS_ACC_RTOL above); Quinn accumulation
-    at SHARDED_MFD_EDGE² within rtol 2e-5, atol 1e-4 of the in-core one,
-    mass conserved within 1e-5; the uneven dryrun; the pipeline through a
+    at SHARDED_MFD_EDGE² within rtol 2e-5, atol 1e-4 of the in-core
+    accumulation (the topological pass) and of the in-core sweeps (the
+    solve each shard runs), mass conserved within 1e-5; the uneven dryrun; the pipeline through a
     one-rank NCCL group at SHARDED_NCCL_EDGE² bitwise the in-process mesh;
     then the seven kernels at their path's shapes against their plain
     versions and timed.  Returns the launches of each sharded path, the
@@ -2326,7 +2410,7 @@ def phase_sharded(dev, card, kernels, err, main_best):
     import torch
     import torch.distributed as dist
     from richdem_tpu_torch import synth as tsynth
-    from richdem_tpu_torch.ops import accum, fill, flowdirs
+    from richdem_tpu_torch.ops import accum, fill, flowdirs, mfd
     from richdem_tpu_torch.parallel import (make_mesh,
                                             sharded_accumulation_d8_twopass,
                                             sharded_accumulation_mfd,
@@ -2411,19 +2495,31 @@ def phase_sharded(dev, card, kernels, err, main_best):
         lambda: sharded_accumulation_mfd(props, mesh=mesh, stats=mst))
     mfd_s = time.perf_counter() - t0
     want = accum.flow_accumulation_from_props(props)
-    if not torch.allclose(got, want, rtol=2e-5, atol=1e-4):
-        raise AssertionError(f"sharded Quinn accumulation off the in-core "
-                             f"one ({max_abs(got, want)})")
+    sweeps, srot, sdone = mfd.mfd_accumulation_info(
+        props.permute(2, 0, 1), torch.ones((edge, edge), device=dev))
+    for what, ref in (("accumulation", want), ("sweeps", sweeps)):
+        if not torch.allclose(got, ref, rtol=2e-5, atol=1e-4):
+            raise AssertionError(f"sharded Quinn accumulation off the "
+                                 f"in-core {what} ({max_abs(got, ref)})")
+    if not sdone:
+        raise AssertionError(f"in-core Quinn sweeps not converged ({srot})")
     mass = absorbed_mass(got, props)
     if not abs(mass - edge * edge) <= 1e-5 * edge * edge:
         raise AssertionError(f"sharded Quinn mass {mass} of {edge ** 2}")
+
+    def rel(a, b):  # every cell holds at least its own unit weight
+        return float(((a.double() - b.double()).abs() / b.double()).max())
+
     log("sharded", f"Quinn accumulation at {edge}x{edge} on the mesh: "
         f"{mfd_s:.3f} s, {mst['mfd_outer_iters']} outer iterations "
         f"({mst['mfd_rotations']} local rotations); within rtol 2e-5, atol "
-        f"1e-4 of the in-core accumulation (max |diff| "
-        f"{max_abs(got, want)}); mass {mass!r} of {edge * edge}; launches "
+        f"1e-4 of the in-core accumulation, the topological pass (max "
+        f"|diff| {max_abs(got, want)}, max rel {rel(got, want):.3e}), and "
+        f"of the in-core sweeps ({srot} rotations; max rel "
+        f"{rel(got, sweeps):.3e}; the pass is {rel(want, sweeps):.3e} "
+        f"from them); mass {mass!r} of {edge * edge}; launches "
         f"{mfd_launches}")
-    del got, want, props
+    del got, want, sweeps, props
 
     shape = dryrun_multichip(4)
     log("sharded", f"dryrun_multichip(4): {shape} depression DEM over a "
@@ -2487,10 +2583,11 @@ def main():
     dev = torch.device("cuda", 0)
     kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP,
                flats.DIST_SWEEP, terrain.TERRAIN, dinf.DINF_SWEEP,
-               mfd.MFD_SWEEP, flowdirs.RHO8, successor.RESOLVE_SWEEP,
-               successor.STRAHLER_SWEEP, fill.FILL_SCAN]
+               mfd.MFD_SWEEP, mfd.MFD_TOPO, flowdirs.RHO8,
+               successor.RESOLVE_SWEEP, successor.STRAHLER_SWEEP,
+               fill.FILL_SCAN]
     phase_build(kernels)
-    err = {k.name: 0.0 for k in kernels}
+    err = {kname(k): 0.0 for k in kernels}
     phase_kernel_vs_plain(dev, err)
     phase_scan_vs_plain(dev, err)
     phase_native(dev)
@@ -2519,6 +2616,7 @@ def main():
     twopass_launches, twopass_times = phase_twopass(dev, card, kernels, err)
     sharded_launches, sharded_times, blocks = phase_sharded(
         dev, card, kernels, err, main_best)
+    path_launches.update(sharded_launches)
     if any(m == "jax" or m.startswith(("jax.", "richdem_tpu."))
            or m == "richdem_tpu"
            for m in sys.modules if sys.modules[m] is not None):
@@ -2527,31 +2625,31 @@ def main():
     log("done", f"every phase passed in {time.perf_counter() - t0:.1f} s "
         "(builds included)")
     record = {"kernels": [
-        {"name": k.name, "route": "cuda",
+        {"name": name, "route": "cuda",
          "source": f"richdem_tpu_torch/csrc/{k.name}.cu",
-         "replaces": REPLACES[k.name][0],
-         "also_replaces": REPLACES[k.name][1],
-         "path": PATH_OF[k.name],
-         "launches": path_launches[PATH_OF[k.name]][k.name],
-         "max_abs_err": err[k.name], "ms": times[k.name]["ms"],
-         "plain_ms": times[k.name]["plain_ms"],
-         "bound_ms": times[k.name]["bound_ms"],
-         "bound_by": times[k.name]["bound_by"],
-         "library_ms": None, **RESOURCES[k.name],
-         **({"launch_shape": SHAPES[k.name]} if k.name in SHAPES else {}),
-         **({"redesigned_in": REDESIGNED[k.name]}
-            if k.name in REDESIGNED else {}),
+         "replaces": REPLACES[name][0],
+         "also_replaces": REPLACES[name][1],
+         "path": PATH_OF[name],
+         "launches": path_launches[PATH_OF[name]][name],
+         "max_abs_err": err[name], "ms": times[name]["ms"],
+         "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"],
+         "library_ms": None, **RESOURCES[name],
+         **({"launch_shape": SHAPES[name]} if name in SHAPES else {}),
+         **({"redesigned_in": REDESIGNED[name]}
+            if name in REDESIGNED else {}),
          **({"twopass": {
-             "launches": sum(run[k.name]
+             "launches": sum(run[name]
                              for run in twopass_launches.values()),
-             "tile": TWOPASS_TILE, **twopass_times[k.name]}}
-            if k.name in twopass_times else {}),
+             "tile": TWOPASS_TILE, **twopass_times[name]}}
+            if name in twopass_times else {}),
          **({"sharded": {
-             "launches": sum(run[k.name]
+             "launches": sum(run[name]
                              for run in sharded_launches.values()),
-             "block": blocks[k.name], **sharded_times[k.name]}}
-            if k.name in sharded_times else {})}
-        for k in kernels]}
+             "block": blocks[name], **sharded_times[name]}}
+            if name in sharded_times else {})}
+        for k, name in ((k, kname(k)) for k in kernels)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,14 +111,22 @@ def find_nvcc() -> str:
         f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels cannot be built")
 
 
+#: One lock a library, held while it is built or loaded, so that entry
+#: points of one source never build it twice at once.
+_LOCKS = {}
+_LOCKS_LOCK = threading.Lock()
+
+
 class Kernel:
     """One CUDA source, its shared library and its launch counter.
 
     ``argtypes`` lists the ctypes argument types of the C entry point
-    ``symbol``, which returns a ``cudaError_t`` as ``int``.  ``defines``
-    (macro → value) replace the build's own ``-D`` values of those macros
-    and name a library of their own: a variant built for measurement
-    (``tools/torch_profile.py flow_tiles``).  The wrapper
+    ``symbol``, which returns a ``cudaError_t`` as ``int``.  Two entry
+    points of one source are two ``Kernel`` objects of one ``name``, each
+    with its own launch count; they share the library and its build.
+    ``defines`` (macro → value) replace the build's own ``-D`` values of
+    those macros and name a library of their own: a variant built for
+    measurement (``tools/torch_profile.py flow_tiles``).  The wrapper
     that launches the kernel calls :meth:`launch`, which adds one to
     ``launches``; nothing else touches the count."""
 
@@ -135,7 +143,8 @@ class Kernel:
         self.launches = 0
         self.build_seconds = None
         self._fn = None
-        self._lock = threading.Lock()
+        with _LOCKS_LOCK:
+            self._lock = _LOCKS.setdefault(self.library, threading.Lock())
 
     def _stale(self) -> bool:
         """The library is missing, or older than its source or a shared

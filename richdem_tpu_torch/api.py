@@ -247,7 +247,8 @@ def FlowProportions(dem, method="D8", exponent=None, seed=0) -> rd3array:
 
 def FlowAccumFromProps(props, weights=None):
     """Weighted upstream accumulation from an (H, W, 8) proportions
-    raster (the multi-flow sweeps)."""
+    raster (the topological pass on a card, the multi-flow sweeps on the
+    CPU or where the shares hold a cycle)."""
     rd = props if isinstance(props, rdarray) else rd3array(
         props if torch.is_tensor(props) else np.asarray(props))
     p = rd.tensor()
@@ -264,8 +265,9 @@ def FlowAccumulation(dem, method="D8", exponent=None, weights=None,
     """Upstream flow accumulation for any metric.
 
     Single-flow metrics (D8/D4/Rho8/Rho4) ride the D8 accumulation sweeps,
-    D∞ the two-tap sweeps and the other metrics the multi-flow sweeps
-    (the reference's TPU engines) on every device."""
+    D∞ the two-tap sweeps and the other metrics multi-flow accumulation
+    (the topological pass on a card, the sweeps of the reference's TPU
+    engines on the CPU)."""
     cite(method)
     rd = _as_rd(dem)
     z = rd.tensor()

@@ -15,8 +15,13 @@
 // the two in-row gates), so an item stages each plane's row once, for the
 // role it plays there: the new-side trio of row r - 1, the old-side trio of
 // row r + 1 and the gates of row r, 11 slots with acc and w.
+//
+// The same field feeds the topological pass of flow_topo.cuh (rd_mfd_topo
+// below), which solves an acyclic field once instead of by rotations of
+// this sweep; the sweep stays as its fallback.
 
 #include "flow_sweep.cuh"
+#include "flow_topo.cuh"
 
 namespace {
 
@@ -42,6 +47,10 @@ struct MfdField {
   static __device__ float tap(const View<NSLOT>& v, int c, bool in) {
     return v.at(3 + ROLE, c, in && v.row_ok(rd::flow::row_of(ROLE)));
   }
+  // share of cell i toward direction d (flow_topo.cuh), read-only
+  static __device__ float share(const Ptrs& p, int d, int i) {
+    return __ldg(p.planes + (d - 1) * p.plane + i);
+  }
 };
 
 }  // namespace
@@ -55,4 +64,14 @@ extern "C" int rd_mfd_sweep(const float* acc_in, const float* wgt,
   return rd::launch_flow_sweep<MfdField>(acc_in, wgt, ptrs, acc_out, h, w,
                                          reverse, lim, flags, flags_len,
                                          stream);
+}
+
+extern "C" int rd_mfd_topo(const float* planes, const float* wgt, float* acc,
+                           int* deps, float* inshare,
+                           unsigned long long* order, int* ctl, int h, int w,
+                           void* stream) {
+  const MfdField::Ptrs ptrs{planes,
+                            static_cast<size_t>(h) * static_cast<size_t>(w)};
+  return rd::launch_flow_topo<MfdField>(ptrs, wgt, acc, deps, inshare, order,
+                                        ctl, h, w, stream);
 }

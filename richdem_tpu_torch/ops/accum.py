@@ -12,10 +12,11 @@ Convergence is equality over a whole rotation (per-sweep flags chatter in
 the last bit of float sums), and a non-converged result raises.
 
 :func:`flow_accumulation_from_props` and
-:func:`dinf_accumulation_from_angles` run the multi-flow and D∞ sweeps
-(:mod:`~richdem_tpu_torch.ops.mfd`, :mod:`~richdem_tpu_torch.ops.dinf`)
-on every device, where the reference takes them only on the TPU and runs
-a Jacobi fixpoint elsewhere.  The Jacobi fixpoint
+:func:`dinf_accumulation_from_angles` run multi-flow accumulation
+(:mod:`~richdem_tpu_torch.ops.mfd`: one topological pass on a card, the
+sweeps on the CPU) and the D∞ sweeps (:mod:`~richdem_tpu_torch.ops.dinf`)
+on every device, where the reference takes its sweeps only on the TPU and
+runs a Jacobi fixpoint elsewhere.  The Jacobi fixpoint
 (:func:`accumulation_jacobi_info`) and D8 pointer doubling
 (:func:`d8_accumulation_doubling`) stay as plain-PyTorch cross-checks.
 """
@@ -163,9 +164,10 @@ def flow_accumulation_from_props(props, weights=None, no_data_mask=None,
                                  max_rotations=None, return_info=False,
                                  depth=MFD_DEPTH, device="cuda",
                                  max_iters=None):
-    """Weighted upstream accumulation from ``(H, W, 8)`` proportions, by the
-    multi-flow sweeps (:func:`~richdem_tpu_torch.ops.mfd.mfd_accumulation`)
-    on every device.  Nodata cells must already have zero proportions
+    """Weighted upstream accumulation from ``(H, W, 8)`` proportions, by
+    :func:`~richdem_tpu_torch.ops.mfd.mfd_accumulation` (one topological
+    pass on a card, the sweeps on the CPU or where the shares hold a
+    cycle).  Nodata cells must already have zero proportions
     (:func:`~richdem_tpu_torch.ops.flowdirs.flow_proportions` gives them
     that); the mask zeroes their weight and output.  ``return_info`` adds
     ``(rotations, converged)``.  ``max_rotations`` (512 by default) bounds

@@ -1,4 +1,5 @@
-"""Multi-flow accumulation by Gauss–Seidel and scan-GS directional sweeps.
+"""Multi-flow accumulation by Gauss–Seidel and scan-GS directional sweeps,
+and on a card by one pass in topological order.
 
 Counterpart of ``richdem_tpu.ops.pallas_mfd`` (``mfd_accumulation_gs``,
 ``_mfd_gs_impl``, ``_mfd_gs_impl_small``) and ``richdem_tpu.ops.pallas_scan``
@@ -29,6 +30,14 @@ transposed sweeps reading the plane stack transposed and permuted
 ``csrc/mfd_sweep.cu``; a CPU tensor through :func:`mfd_sweep_plain`.
 Convergence is equality over a whole rotation, and a non-converged result
 raises.
+
+On a CUDA tensor :func:`mfd_accumulation` first solves the field once in
+topological order (:func:`mfd_topo`, ``csrc/flow_topo.cuh`` over the same
+field; plain version :func:`mfd_topo_plain`): a cell takes its value from
+its donors once they all have theirs, level after level.  Shares that only
+go downhill hold no cycle, so every cell is solved and no rotation runs;
+a field with a cycle leaves cells unsolved, and the sweeps run from
+``A = w`` as above.  A CPU tensor takes the sweeps.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import (FLOW_HALO, FLOW_TILE, Kernel,
                                       stream_handle)
 from richdem_tpu_torch.debug import span
@@ -47,15 +57,20 @@ from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
                                           accumulation_rotations,
                                           accumulation_trios, pad_row)
 
-__all__ = ["MFD_SWEEP", "MFD_DEPTH", "scan_window", "mfd_sweep",
-           "sweep_flags",
-           "mfd_sweep_plain", "transpose_planes", "mfd_accumulation_info",
+__all__ = ["MFD_SWEEP", "MFD_TOPO", "MFD_DEPTH", "scan_window", "mfd_sweep",
+           "sweep_flags", "mfd_sweep_plain", "transpose_planes",
+           "mfd_topo", "mfd_topo_plain", "mfd_accumulation_info",
            "mfd_accumulation"]
 
 _P = ctypes.c_void_p
 MFD_SWEEP = Kernel("mfd_sweep", "rd_mfd_sweep",
                    [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, _P, ctypes.c_int, _P])
+#: The topological pass, an entry point of the same library
+#: (``csrc/mfd_sweep.cu`` over ``csrc/flow_topo.cuh``).
+MFD_TOPO = Kernel("mfd_sweep", "rd_mfd_topo",
+                  [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                   _P])
 
 #: The in-row scan depth of multi-flow accumulation, chosen on an H100
 #: (PERF.md: rotations and time per step at depth 1, 8, 32 and 0).
@@ -193,6 +208,103 @@ def transpose_planes(planes):
     return out
 
 
+def mfd_topo_plain(planes, w):
+    """Plain version of the topological pass (``csrc/flow_topo.cuh``):
+    Kahn's algorithm by levels over the graph of nonzero shares, in float32.
+    A cell's value is pulled from its donors once they all have theirs,
+    ``((w + a₁·s₁) + a₂·s₂) + …`` over the neighbours d = 1…8 that send it
+    a nonzero share ``s_d`` (each product rounded, then each sum), which is
+    the kernel's order, so the two agree bitwise whatever the schedule.
+
+    ``planes``: (8, H, W) float32 shares, plane d - 1 toward direction d;
+    ``w``: (H, W) float32.  Returns ``(acc, left)``: ``left`` counts the
+    cells the pass leaves without a number (on a cycle of the shares or
+    downstream of one, where ``acc`` reads 0), and those it solves to NaN,
+    on which the sweeps never converge either."""
+    _, h, wd = planes.shape
+    n = h * wd
+    dev = planes.device
+    shares = planes.reshape(8, n)
+    flat = torch.arange(n, device=dev)
+    row, col = flat // max(wd, 1), flat % max(wd, 1)
+    nbr, inside = [], []  # by direction: neighbour's flat index, on grid
+    for d in range(1, 9):
+        dy, dx = int(topology.DY[d]), int(topology.DX[d])
+        ok = ((row + dy >= 0) & (row + dy < h) & (col + dx >= 0)
+              & (col + dx < wd))
+        nbr.append(torch.where(ok, flat + dy * wd + dx, flat))
+        inside.append(ok)
+
+    def receivers(cells):  # one entry an edge out of ``cells``
+        return torch.cat([nbr[d - 1][cells][inside[d - 1][cells]
+                                            & (shares[d - 1, cells] != 0)]
+                          for d in range(1, 9)])
+
+    deps = torch.zeros(n, dtype=torch.int32, device=dev)
+    recv = receivers(flat)
+    deps.index_add_(0, recv, torch.ones_like(recv, dtype=torch.int32))
+    acc = torch.zeros(n, dtype=torch.float32, device=dev)
+    wf = w.reshape(n)
+    ready = torch.nonzero(deps == 0).flatten()
+    solved = 0
+    while ready.numel():
+        a = wf[ready]
+        for d in range(1, 9):
+            inv = int(topology.D8_INVERSE[d])
+            nb = nbr[d - 1][ready]
+            s = torch.where(inside[d - 1][ready], shares[inv - 1, nb], 0.0)
+            a = torch.where(s != 0, a + acc[nb] * s, a)
+        acc[ready] = a
+        solved += int((a == a).sum())
+        recv = receivers(ready)
+        deps.index_add_(0, recv, torch.full_like(recv, -1,
+                                                 dtype=torch.int32))
+        recv = torch.unique(recv)
+        ready = recv[deps[recv] == 0]
+    return acc.view(h, wd), n - solved
+
+
+def mfd_topo(planes, w):
+    """The topological pass over ``(8, H, W)`` float32 shares and ``(H, W)``
+    float32 weights, both contiguous; returns ``(acc, left)`` as
+    :func:`mfd_topo_plain` does (``acc`` is unwritten where a cell is left
+    unsolved).  A CUDA tensor launches ``csrc/flow_topo.cuh``'s two kernels
+    and reads the count of solved cells, the pass's one host sync; a CPU
+    tensor runs the plain version."""
+    if not planes.is_cuda:
+        return mfd_topo_plain(planes, w)
+    _, h, wd = planes.shape
+    for x, shape, name in ((planes, (8, h, wd), "planes"),
+                           (w, (h, wd), "w")):
+        if (x.dtype != torch.float32 or not x.is_contiguous()
+                or tuple(x.shape) != shape or x.device != planes.device):
+            raise ValueError(f"{name}: expected a contiguous float32 "
+                             f"tensor {shape} on planes' device")
+    n = h * wd
+    if n > 2**30:
+        raise ValueError(f"{h}x{wd}: the topological pass takes at most "
+                         "2**30 cells")
+    dev = planes.device
+    acc = torch.empty((h, wd), dtype=torch.float32, device=dev)
+    if n == 0:
+        return acc, 0
+    deps = torch.empty(n, dtype=torch.int32, device=dev)
+    inshare = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    ctl = torch.empty(128, dtype=torch.int32, device=dev)
+    MFD_TOPO.launch(planes.data_ptr(), w.data_ptr(), acc.data_ptr(),
+                    deps.data_ptr(), inshare.data_ptr(), order.data_ptr(),
+                    ctl.data_ptr(), h, wd, stream_handle(dev))
+    return acc, n - int(ctl[64])  # the control block's count of solved
+
+
+def _topo_first(planes):
+    """Whether :func:`mfd_accumulation` tries the topological pass before
+    the sweeps: on a card, where it replaces dozens of rotations, for a
+    grid of at most 2**30 cells, which it indexes in int32."""
+    return planes.is_cuda and planes[0].numel() <= 2**30
+
+
 def mfd_accumulation_info(planes, weights, max_rotations=512,
                           depth=MFD_DEPTH, sweep=mfd_sweep):
     """Rotations from ``A = w`` over plane-major proportions ``(8, H, W)``
@@ -211,9 +323,13 @@ def mfd_accumulation(props, weights=None, no_data_mask=None,
                      max_rotations=512, return_info=False, depth=MFD_DEPTH,
                      device="cuda"):
     """Weighted upstream accumulation from ``(H, W, 8)`` proportions, exact
-    at the fixpoint (the topological queue's result); raises if
-    ``max_rotations`` rotations do not reach it.  Zero weight and zero
-    output at nodata.  ``return_info`` adds ``(rotations, converged)``.
+    at the fixpoint (the topological queue's result).  On a CUDA tensor the
+    topological pass (:func:`mfd_topo`) solves an acyclic field with no
+    rotation; a field it leaves unsolved, and a CPU tensor, take the sweeps
+    (:func:`mfd_accumulation_info` at ``depth``), which raise if
+    ``max_rotations`` rotations do not reach the fixpoint.  Zero weight and
+    zero output at nodata.  ``return_info`` adds ``(rotations,
+    converged)``: ``(0, True)`` after the topological pass.
 
     ``props``: a tensor (the work runs where it lives) or an array (moved
     to ``device``, as are array weights and masks).  A plane-major stack
@@ -230,8 +346,13 @@ def mfd_accumulation(props, weights=None, no_data_mask=None,
         if no_data_mask is not None:
             no_data_mask = as_tensor(no_data_mask, planes.device)
             weights = torch.where(no_data_mask, 0.0, weights)
-        acc, rotations, done = mfd_accumulation_info(planes, weights,
-                                                     max_rotations, depth)
+        topo = _topo_first(planes)
+        if topo:
+            acc, left = mfd_topo(planes, weights.contiguous())
+            rotations, done = 0, True
+        if not topo or left:
+            acc, rotations, done = mfd_accumulation_info(
+                planes, weights, max_rotations, depth)
         _require_converged(done, "multi-flow accumulation", max_rotations)
         if no_data_mask is not None:
             acc = torch.where(no_data_mask, 0.0, acc)

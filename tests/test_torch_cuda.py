@@ -1,4 +1,4 @@
-"""The eleven CUDA kernels ↔ their plain versions, on a CUDA card.
+"""The CUDA kernels ↔ their plain versions, on a CUDA card.
 
 Marked ``gpu``: the kernels have no CPU mode, so without a card and
 ``nvcc`` these tests skip.  On a card, run
@@ -33,7 +33,10 @@ are the Rho8 codes and the terrain attributes on the same tile
 D∞ and multi-flow sweeps, whose tiles trade edge values, equal their plain
 versions and the plain sweep over whole rows at widths from 1 to 8300,
 on grids wider than the card's resident blocks, and through a whole Quinn
-fixpoint at 512².  The two-pass programs at 1024² (tile 256) run the
+fixpoint at 512².  The topological multi-flow pass (its count and solve
+kernels) is bitwise its plain version and itself on a second run, on
+those shapes with holes and at 512², and hands a field with a cycle to
+the sweeps.  The two-pass programs at 1024² (tile 256) run the
 fill, D8, distance, resolve and accumulation kernels and equal the
 in-core results and the native consumer bitwise, as does the ε Schwarz
 fill the in-core ε-fill from BIG; the min-plus names run the fill kernel
@@ -950,6 +953,71 @@ def test_quinn_fixpoint_matches_whole_rows(dev):
     ref, rp, dp = mfd.mfd_accumulation_info(planes, ones, sweep=whole)
     assert dk and dp and rk == rp
     assert torch.equal(got, ref)
+
+
+def _topo_held(planes, w):
+    """The topological pass's two kernels ↔ ``mfd_topo_plain``: the same
+    count of cells left and, where none is, the same bits; a second launch
+    gives the same bits again."""
+    before = mfd.MFD_TOPO.launches
+    got, left = mfd.mfd_topo(planes, w)
+    again, left2 = mfd.mfd_topo(planes, w)
+    torch.cuda.synchronize()
+    assert mfd.MFD_TOPO.launches == before + 2
+    ref, left_p = mfd.mfd_topo_plain(planes, w)
+    assert left == left2 == left_p
+    if not left:
+        assert torch.equal(got, ref) and torch.equal(again, got)
+    return got, left
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 1), (1, 7), (5, 1)])
+def test_mfd_topo_kernels_match_plain(dev, shape):
+    """Quinn shares of an ε-filled Perlin DEM with nodata holes, float
+    weights: bitwise the plain version, and the same bits twice."""
+    _, w, fields = _flow_case(shape, dev, seed=shape[1])
+    assert _topo_held(fields["mfd"], w)[1] == 0
+
+
+def _quinn_512(dev):
+    z = tsynth.perlin_dem(512, 512, seed=0, device=dev)
+    filled, _, done = fill.fill_depressions_info(z, eps=1e-2)
+    assert done
+    planes = flowdirs.flow_proportions(filled, "Quinn").permute(2, 0, 1)
+    return planes.contiguous(), torch.ones_like(z)
+
+
+def test_mfd_topo_quinn_512(dev):
+    """At 512² the topological pass is bitwise its plain version and runs
+    no sweep through the entry point, whose result it is."""
+    planes, ones = _quinn_512(dev)
+    got, _ = _topo_held(planes, ones)
+    before = mfd.MFD_SWEEP.launches
+    acc, rot, done = mfd.mfd_accumulation(planes.permute(1, 2, 0),
+                                          return_info=True)
+    assert mfd.MFD_SWEEP.launches == before
+    assert done and rot == 0 and torch.equal(acc, got)
+
+
+def test_mfd_topo_falls_back_on_a_cycle(dev):
+    """Four cells sending half their flow round a cycle: the pass leaves
+    them and what lies downstream, the entry point runs the sweeps from
+    A = w, and its result is theirs bit for bit; the rotation cap still
+    governs there."""
+    planes, ones = _quinn_512(dev)
+    planes[:, 2:4, 2:4] *= 0.5
+    for d, (r, c) in ((5, (2, 2)), (7, (2, 3)), (1, (3, 3)), (3, (3, 2))):
+        planes[d - 1, r, c] += 0.5
+    assert _topo_held(planes, ones)[1] > 4
+    before = mfd.MFD_SWEEP.launches
+    acc, rot, done = mfd.mfd_accumulation(planes.permute(1, 2, 0),
+                                          return_info=True)
+    assert mfd.MFD_SWEEP.launches > before
+    ref, rr, dr = mfd.mfd_accumulation_info(planes, ones)
+    assert done and dr and rot == rr >= 1
+    assert torch.equal(acc, ref)
+    with pytest.raises(RuntimeError, match="did not converge"):
+        mfd.mfd_accumulation(planes.permute(1, 2, 0), max_rotations=1)
 
 
 # -- the two-pass programs and the min-plus names -------------------------

@@ -30,7 +30,7 @@ from richdem_tpu import oracle, synth
 from richdem_tpu.ops import pallas_folded, pallas_mfd, pallas_scan
 from richdem_tpu.ops import pallas_sweeps
 from richdem_tpu.ops.flowdirs import flow_proportions as jax_proportions
-from richdem_tpu_torch import convert
+from richdem_tpu_torch import convert, topology
 from richdem_tpu_torch._build import FLOW_HALO, FLOW_TILE
 from richdem_tpu_torch.ops import accum as tacc
 from richdem_tpu_torch.ops import mfd as tmfd
@@ -245,3 +245,95 @@ def test_entry_point_takes_arrays_and_caps_rotations():
     with pytest.raises(RuntimeError, match="did not converge"):
         tacc.flow_accumulation_from_props(props, max_rotations=1,
                                           device="cpu")
+
+
+# -- the topological pass (plain version of csrc/flow_topo.cuh) -----------
+
+
+def _cycle_field():
+    """Quinn planes of the seed case with a cycle of four cells, (2, 2) E →
+    (2, 3) S → (3, 3) W → (3, 2) N → (2, 2), each sending half of its
+    accumulation on round it: the sweeps still converge."""
+    planes, w = _planes_weights("Quinn", False)
+    planes = planes.clone()
+    planes[:, 2:4, 2:4] *= 0.5
+    for d, (r, c) in ((5, (2, 2)), (7, (2, 3)), (1, (3, 3)), (3, (3, 2))):
+        planes[d - 1, r, c] += 0.5
+    return planes, w
+
+
+@pytest.mark.parametrize("nodata", [False, True])
+@pytest.mark.parametrize("method", sorted(METRICS))
+def test_topo_plain_vs_float64_queue(method, nodata):
+    """The topological pass in float32 ↔ the float64 topological queue,
+    unit weights on full data, float weights with nodata holes."""
+    props, weights, mask = _case(method, nodata)
+    planes, w = _planes_weights(method, nodata)
+    acc, left = tmfd.mfd_topo_plain(planes, w)
+    assert left == 0
+    want = oracle.flow_accumulation_from_props(
+        props.astype(np.float64), weights=np.where(mask, 0.0, weights))
+    _close(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("method", sorted(METRICS))
+def test_topo_plain_vs_sweep_fixpoint(method):
+    """The topological pass reaches the sweeps' fixpoint, its float sums
+    grouped otherwise."""
+    planes, w = _planes_weights(method, False)
+    acc, left = tmfd.mfd_topo_plain(planes, w)
+    assert left == 0
+    _close(acc.numpy(), _port(_case(method), tmfd.MFD_DEPTH))
+
+
+def _downstream(planes, seeds):
+    """The cells reachable from ``seeds`` over nonzero shares, seeds
+    included."""
+    _, h, w = planes.shape
+    seen, todo = set(seeds), list(seeds)
+    while todo:
+        r, c = todo.pop()
+        for d in range(1, 9):
+            rr, cc = r + int(topology.DY[d]), c + int(topology.DX[d])
+            if (0 <= rr < h and 0 <= cc < w and planes[d - 1, r, c] != 0
+                    and (rr, cc) not in seen):
+                seen.add((rr, cc))
+                todo.append((rr, cc))
+    return seen
+
+
+def test_topo_plain_leaves_a_cycle_and_nan_unsolved():
+    """The pass leaves the cells of a cycle and every cell downstream of
+    them; it counts a cell it solves to NaN as left too (the sweeps never
+    converge there)."""
+    planes, w = _cycle_field()
+    _, left = tmfd.mfd_topo_plain(planes, w)
+    assert left == len(_downstream(planes, [(2, 2)])) > 4
+    planes, w = _planes_weights("Quinn", False)
+    w = w.clone()
+    w[5, 6] = float("nan")
+    acc, left = tmfd.mfd_topo_plain(planes, w)
+    assert left == int(torch.isnan(acc).sum()) == len(
+        _downstream(planes, [(5, 6)]))
+
+
+@pytest.mark.parametrize("cyclic", [False, True])
+def test_entry_point_falls_back_to_the_sweeps_on_a_cycle(monkeypatch,
+                                                         cyclic):
+    """With the topological pass first (as on a card), an acyclic field
+    takes no rotation and is the pass's result bitwise; a field with a
+    cycle is left to the sweeps from A = w, whose result and rotations it
+    returns."""
+    planes, w = _cycle_field() if cyclic else _planes_weights("Quinn", True)
+    props = planes.permute(1, 2, 0)
+    sweeps = tmfd.mfd_accumulation(props, w, return_info=True)
+    monkeypatch.setattr(tmfd, "_topo_first", lambda planes: True)
+    acc, rot, done = tmfd.mfd_accumulation(props, w, return_info=True)
+    assert done
+    if cyclic:
+        assert rot == sweeps[1] >= 1
+        assert torch.equal(acc, sweeps[0])
+    else:
+        assert rot == 0
+        assert torch.equal(acc, tmfd.mfd_topo_plain(planes, w)[0])
+        _close(acc.numpy(), sweeps[0].numpy())
