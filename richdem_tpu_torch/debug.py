@@ -36,10 +36,14 @@ TRACE_FILE = "trace.json"
 #: (``ops.flowdirs.d8_core``), D8 accumulation
 #: (``ops.accum.d8_accumulation_info``), slope and TWI
 #: (``ops.terrain.terrain_core``, ``methods.twi``), flow proportions
-#: (``ops.flowdirs.flow_proportions``) and multi-flow accumulation
-#: (``ops.mfd.mfd_accumulation``).
+#: (``ops.flowdirs.flow_proportions``), multi-flow accumulation
+#: (``ops.mfd.mfd_accumulation``), flat resolution
+#: (``ops.flats.resolve_flats_info``), watershed labels, Strahler order and
+#: upslope cells (``methods.watersheds_from_flowdirs``,
+#: ``methods.strahler_order``, ``methods.upslope_cells``).
 SPANS = ("rd.fill", "rd.d8", "rd.accum", "rd.terrain", "rd.props",
-         "rd.mfd")
+         "rd.mfd", "rd.flats", "rd.watersheds", "rd.strahler",
+         "rd.upslope")
 _NO_SPAN = contextlib.nullcontext()
 
 

@@ -79,24 +79,26 @@ def watersheds_from_flowdirs(flowdirs, max_rotations=64, return_info=False,
     ``return_info`` adds ``(rotations, engine)``: the rotations the sweeps
     took and ``"sweeps"`` or ``"doubling"``.  ``flowdirs``: a tensor (the
     work runs where it lives) or an array (moved to ``device``)."""
-    fd_eff = effective_codes(as_tensor(flowdirs, device))
-    pinned = fd_eff == 0
-    own = torch.arange(fd_eff.numel(), dtype=torch.int32,
-                       device=fd_eff.device).view(fd_eff.shape)
-    init = torch.where(pinned, own, -1)
-    labels, rotations, done = successor_resolve_info(fd_eff, init, pinned,
-                                                     max_rotations)
-    engine = _finish("watersheds", rotations, done, fd_eff.shape)
-    if done:
-        cyclic = int((labels < 0).sum())
-    else:
-        # a label that is not a terminal sits on a cycle
-        labels = watersheds_doubling(fd_eff)
-        cyclic = int((~pinned.reshape(-1)[labels.reshape(-1).long()]).sum())
-    if cyclic:
-        raise ValueError(f"flow directions hold a cycle: {cyclic} cells "
-                         "never reach a terminal")
-    return (labels, rotations, engine) if return_info else labels
+    with span("rd.watersheds"):
+        fd_eff = effective_codes(as_tensor(flowdirs, device))
+        pinned = fd_eff == 0
+        own = torch.arange(fd_eff.numel(), dtype=torch.int32,
+                           device=fd_eff.device).view(fd_eff.shape)
+        init = torch.where(pinned, own, -1)
+        labels, rotations, done = successor_resolve_info(
+            fd_eff, init, pinned, max_rotations)
+        engine = _finish("watersheds", rotations, done, fd_eff.shape)
+        if done:
+            cyclic = int((labels < 0).sum())
+        else:
+            # a label that is not a terminal sits on a cycle
+            labels = watersheds_doubling(fd_eff)
+            cyclic = int((~pinned.reshape(-1)[labels.reshape(-1).long()])
+                         .sum())
+        if cyclic:
+            raise ValueError(f"flow directions hold a cycle: {cyclic} cells "
+                             "never reach a terminal")
+        return (labels, rotations, engine) if return_info else labels
 
 
 def upslope_cells(seed_mask, flowdirs, max_rotations=64, return_info=False,
@@ -107,13 +109,15 @@ def upslope_cells(seed_mask, flowdirs, max_rotations=64, return_info=False,
     fixpoint, pointer doubling finishes.  ``return_info`` adds
     ``(rotations, engine)`` as :func:`watersheds_from_flowdirs` does.
     Tensors run where ``flowdirs`` lives; arrays move to ``device``."""
-    fd_eff = effective_codes(as_tensor(flowdirs, device))
-    seeds = as_tensor(seed_mask, fd_eff.device).to(torch.bool)
-    out, rotations, done = successor_resolve_info(
-        fd_eff, seeds.to(torch.int32), seeds | (fd_eff == 0), max_rotations)
-    engine = _finish("upslope cells", rotations, done, fd_eff.shape)
-    up = out > 0 if done else upslope_doubling(seeds, fd_eff)
-    return (up, rotations, engine) if return_info else up
+    with span("rd.upslope"):
+        fd_eff = effective_codes(as_tensor(flowdirs, device))
+        seeds = as_tensor(seed_mask, fd_eff.device).to(torch.bool)
+        out, rotations, done = successor_resolve_info(
+            fd_eff, seeds.to(torch.int32), seeds | (fd_eff == 0),
+            max_rotations)
+        engine = _finish("upslope cells", rotations, done, fd_eff.shape)
+        up = out > 0 if done else upslope_doubling(seeds, fd_eff)
+        return (up, rotations, engine) if return_info else up
 
 
 def strahler_order(flowdirs, max_rotations=None, return_info=False,
@@ -126,8 +130,10 @@ def strahler_order(flowdirs, max_rotations=None, return_info=False,
     ``return_info`` adds ``(rotations, converged)``.  ``flowdirs``: a
     tensor (the work runs where it lives) or an array (moved to
     ``device``)."""
-    cap = _rotation_cap(max_rotations, max_iters, 64)
-    return strahler_fixpoint(as_tensor(flowdirs, device), cap, return_info)
+    with span("rd.strahler"):
+        cap = _rotation_cap(max_rotations, max_iters, 64)
+        return strahler_fixpoint(as_tensor(flowdirs, device), cap,
+                                 return_info)
 
 
 def _rounds(fd):

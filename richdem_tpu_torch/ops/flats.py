@@ -42,6 +42,7 @@ import torch
 
 from richdem_tpu_torch import topology
 from richdem_tpu_torch._build import Kernel, stream_handle
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
 from richdem_tpu_torch.ops.successor import block_flags, walk_shape
@@ -151,53 +152,55 @@ def resolve_flats_info(z, fd, nodata_mask, max_iters=256, sweep=dist_sweep):
     maxd); ``converged``: whether all three reached their fixpoint.
     ``mask`` is int32, ``in_flat`` the local membership superset (module
     docstring)."""
-    ff = flat_fields(z, fd, nodata_mask)
-    ctx = dist_context(ff["zed"], ff["flags"])
-    big = _scalar(BIG, ff["zed"])
+    with span("rd.flats"):
+        ff = flat_fields(z, fd, nodata_mask)
+        ctx = dist_context(ff["zed"], ff["flags"])
+        big = _scalar(BIG, ff["zed"])
 
-    def seeded(where, value):
-        return torch.where(where, _scalar(value, big), big)
+        def seeded(where, value):
+            return torch.where(where, _scalar(value, big), big)
 
-    T, i1, d1 = dist_fixpoint_core(seeded(ff["outlet"], 0.0), ctx,
-                                   "towards", 1.0, max_iters, sweep)
-    D, i2, d2 = dist_fixpoint_core(seeded(ff["high_seed"], 1.0), ctx,
-                                   "away", 1.0, max_iters, sweep)
-    zero = _scalar(0.0, big)
-    reached_d = D < _UNREACHED
-    d_finite = torch.where(reached_d, D, zero)
-    neg_max, i3, d3 = dist_fixpoint_core(
-        torch.where(ff["in_flat"], -d_finite, big), ctx, "maxd", 0.0,
-        max_iters, sweep)
-    max_d = -neg_max
+        T, i1, d1 = dist_fixpoint_core(seeded(ff["outlet"], 0.0), ctx,
+                                       "towards", 1.0, max_iters, sweep)
+        D, i2, d2 = dist_fixpoint_core(seeded(ff["high_seed"], 1.0), ctx,
+                                       "away", 1.0, max_iters, sweep)
+        zero = _scalar(0.0, big)
+        reached_d = D < _UNREACHED
+        d_finite = torch.where(reached_d, D, zero)
+        neg_max, i3, d3 = dist_fixpoint_core(
+            torch.where(ff["in_flat"], -d_finite, big), ctx, "maxd", 0.0,
+            max_iters, sweep)
+        max_d = -neg_max
 
-    away_term = torch.where(reached_d, max_d + 1.0 - D, zero)
-    drained = (ff["noflow"] & ~ff["drain"] & ff["in_flat"]
-               & (T < _UNREACHED))
-    mask = torch.where(drained, 2.0 * T + away_term, zero)
+        away_term = torch.where(reached_d, max_d + 1.0 - D, zero)
+        drained = (ff["noflow"] & ~ff["drain"] & ff["in_flat"]
+                   & (T < _UNREACHED))
+        mask = torch.where(drained, 2.0 * T + away_term, zero)
 
-    # steepest descent on the mask over equal-z neighbours in a flat;
-    # strict > keeps the first maximum in direction order 1..8
-    zed, in_flat = ff["zed"], ff["in_flat"]
-    zbig = _scalar(ZBIG, zed)
-    best = torch.full_like(mask, -BIG)
-    kbest = torch.zeros(mask.shape, dtype=torch.int8, device=mask.device)
-    for d in range(1, 9):
-        zb = neighbor(zed, d, float("nan"))
-        eq = (zed == zb) & (zb < zbig)
-        # 1/DR in float64, rounded once to float32 (as the reference)
-        inv = _scalar(float(np.float32(1.0 / topology.DR[d])), mask)
-        slope = torch.where(eq & neighbor(in_flat, d, False),
-                            (mask - neighbor(mask, d, BIG)) * inv,
-                            _scalar(-BIG, mask))
-        upd = slope > best
-        best = torch.where(upd, slope, best)
-        kbest = torch.where(upd, torch.tensor(d, dtype=torch.int8,
-                                              device=mask.device), kbest)
-    new_dir = torch.where(best > 0, kbest.to(fd.dtype),
-                          torch.zeros_like(fd))
-    resolved = torch.where(drained & (fd == _NO_FLOW), new_dir, fd)
-    return (resolved, mask.to(torch.int32), in_flat, (i1, i2, i3),
-            d1 and d2 and d3)
+        # steepest descent on the mask over equal-z neighbours in a flat;
+        # strict > keeps the first maximum in direction order 1..8
+        zed, in_flat = ff["zed"], ff["in_flat"]
+        zbig = _scalar(ZBIG, zed)
+        best = torch.full_like(mask, -BIG)
+        kbest = torch.zeros(mask.shape, dtype=torch.int8,
+                            device=mask.device)
+        for d in range(1, 9):
+            zb = neighbor(zed, d, float("nan"))
+            eq = (zed == zb) & (zb < zbig)
+            # 1/DR in float64, rounded once to float32 (as the reference)
+            inv = _scalar(float(np.float32(1.0 / topology.DR[d])), mask)
+            slope = torch.where(eq & neighbor(in_flat, d, False),
+                                (mask - neighbor(mask, d, BIG)) * inv,
+                                _scalar(-BIG, mask))
+            upd = slope > best
+            best = torch.where(upd, slope, best)
+            kbest = torch.where(upd, torch.tensor(d, dtype=torch.int8,
+                                                  device=mask.device), kbest)
+        new_dir = torch.where(best > 0, kbest.to(fd.dtype),
+                              torch.zeros_like(fd))
+        resolved = torch.where(drained & (fd == _NO_FLOW), new_dir, fd)
+        return (resolved, mask.to(torch.int32), in_flat, (i1, i2, i3),
+                d1 and d2 and d3)
 
 
 def _inputs(dem, flowdirs, no_data, device):

@@ -5,8 +5,9 @@ times; ``check_raster`` the reference's messages for the same raster, as a
 numpy array or as a tensor; ``trace`` writes a Chrome-format trace that
 Perfetto opens.  ``all_neighbors`` and ``neighbor_distances`` are bitwise
 the reference's.  The layer spans open at their entries, once each and
-nested only where one entry calls another, while a profiler records; they
-cost a shared null context without one, and change no output.
+nested only where one entry calls another, while a profiler records; the
+basin layers' spans hold every operator their entries run; they cost a
+shared null context without one, and change no output.
 """
 
 import json
@@ -124,11 +125,39 @@ def _d8_props(z):
     return [rt.flow_proportions(z, "D8")]
 
 
+def _basin_inputs(z):
+    """The ε = 0 fill of a 16 × 24 corner of ``z`` (the plain walks take a
+    Python loop a row), its D8 codes and nodata mask, the resolved codes,
+    and every terminal as a gauge."""
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops.fill import fill_depressions_info
+    from richdem_tpu_torch.ops.flowdirs import d8_core
+
+    z = z[:16, :24].contiguous()
+    mask = torch.zeros(z.shape, dtype=torch.bool)
+    filled, _, done = fill_depressions_info(z, mask, eps=0.0, max_iters=256)
+    assert done
+    codes = d8_core(filled, mask)
+    fd = rt.resolve_flats(filled, codes)
+    return filled, codes, mask, fd, fd == 0
+
+
+def _basins(z):
+    import richdem_tpu_torch as rt
+
+    _, _, _, fd, seeds = _basin_inputs(z)
+    return [fd, rt.watersheds_from_flowdirs(fd), rt.strahler_order(fd),
+            rt.upslope_cells(seeds, fd)]
+
+
 #: Each path, the spans it opens (name: count) and the (outer, inner)
 #: pairs of spans nested one in the other.
 PATHS = {"d8_pipeline": (_d8_pipeline, {"rd.fill": 1, "rd.d8": 1,
                                         "rd.accum": 1, "rd.terrain": 2},
                          set()),
+         "basins": (_basins, {"rd.fill": 1, "rd.d8": 1, "rd.flats": 1,
+                              "rd.watersheds": 1, "rd.strahler": 1,
+                              "rd.upslope": 1}, set()),
          "quinn": (_quinn, {"rd.fill": 1, "rd.props": 1, "rd.mfd": 1},
                    set()),
          "d8_props": (_d8_props, {"rd.props": 1, "rd.d8": 1},
@@ -139,21 +168,30 @@ def _dem():
     return tsynth.perlin_dem(24, 40, seed=3, device="cpu")
 
 
-def _profiled_spans(path, tmp_path):
-    """The ``rd.*`` spans a profiled call of ``path`` leaves in its Chrome
-    trace, and the call's outputs."""
+def _profiled_events(call, tmp_path):
+    """The events of a profiled ``call()``'s Chrome trace, and its
+    outputs."""
     from torch.profiler import ProfilerActivity, profile
 
-    z = _dem()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        out = path(z)
+        out = call()
     trace = tmp_path / "trace.json"
     prof.export_chrome_trace(str(trace))
     with open(trace) as fh:
-        events = json.load(fh)["traceEvents"]
-    spans = [e for e in events if e.get("cat") == "user_annotation"
-             and str(e.get("name", "")).startswith("rd.")]
-    return spans, out
+        return json.load(fh)["traceEvents"], out
+
+
+def _rd_spans(events):
+    return [e for e in events if e.get("cat") == "user_annotation"
+            and str(e.get("name", "")).startswith("rd.")]
+
+
+def _profiled_spans(path, tmp_path):
+    """The ``rd.*`` spans a profiled call of ``path`` leaves in its Chrome
+    trace, and the call's outputs."""
+    z = _dem()
+    events, out = _profiled_events(lambda: path(z), tmp_path)
+    return _rd_spans(events), out
 
 
 @pytest.mark.parametrize("name", sorted(PATHS))
@@ -202,7 +240,51 @@ def test_without_a_profiler_a_span_is_one_null_context(monkeypatch,
                                       "rd.terrain", "rd.terrain"])
 
 
-@pytest.mark.parametrize("name", ["rd.nope", "perfbench.window", ""])
+#: The entries of the basin layers and the span each opens; ``_doubling``:
+#: the walk once more with a cap of one rotation, so that pointer doubling
+#: finishes it.
+BASIN_ENTRIES = {"flats": "rd.flats", "watersheds": "rd.watersheds",
+                 "watersheds_doubling": "rd.watersheds",
+                 "strahler": "rd.strahler", "upslope": "rd.upslope",
+                 "upslope_doubling": "rd.upslope"}
+
+
+def _basin_entry(entry, filled, codes, mask, fd, seeds):
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops.flats import resolve_flats_info
+
+    cap = {"max_rotations": 1} if entry.endswith("_doubling") else {}
+    if entry == "flats":
+        return resolve_flats_info(filled, codes, mask)
+    if entry == "strahler":
+        return rt.strahler_order(fd)
+    if entry.startswith("watersheds"):
+        return rt.watersheds_from_flowdirs(fd, return_info=True, **cap)
+    return rt.upslope_cells(seeds, fd, return_info=True, **cap)
+
+
+@pytest.mark.parametrize("entry", sorted(BASIN_ENTRIES))
+def test_a_basin_span_owns_every_operation_of_its_entry(entry, tmp_path):
+    """Every operator a basin entry runs, pointer doubling included, lies
+    in the one span it opens, so a trace puts all its work on its layer."""
+    from perfbench import spans
+
+    name = BASIN_ENTRIES[entry]
+    inputs = _basin_inputs(_dem())
+    events, out = _profiled_events(lambda: _basin_entry(entry, *inputs),
+                                   tmp_path)
+    if entry.endswith("_doubling"):
+        assert out[-1] == "doubling"
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    held = spans.owners(_rd_spans(events),
+                        [((e.get("pid"), e.get("tid")), e["ts"])
+                         for e in ops])
+    assert ops and set(held) == {name}
+    assert [s["name"] for s in _rd_spans(events)] == [name]
+
+
+@pytest.mark.parametrize("name", ["rd.nope", "perfbench.window", "",
+                                  "rd.gauges", "rd.flat"])
 def test_an_unknown_span_raises(name):
     with pytest.raises(ValueError, match="unknown span"):
         tdebug.span(name)
