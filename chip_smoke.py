@@ -10,8 +10,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 
 1. device — the card's ``name, power.limit`` from nvidia-smi;
 2. build — compiles the eleven kernel sources from
-   ``richdem_tpu_torch/csrc`` (twelve kernels: the multi-flow sweep's
-   library also holds the topological pass) and the port's native engine,
+   ``richdem_tpu_torch/csrc`` (thirteen kernels: the multi-flow sweep's
+   library also holds the topological pass, the resolve sweep's the
+   successor jump) and the port's native engine,
    all at once (or loads them when the libraries
    are newer than the sources), and reads each kernel's registers and
    spills from ``ptxas``'s report and the launch shapes of the scan
@@ -24,7 +25,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    are exact), the multi-flow topological pass with unit and float
    weights (bitwise, and the same bits on a second call), Rho8
    and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
-   transposed up and their fixpoints; the distance, resolve and Strahler
+   transposed up and their fixpoints, the successor jump's labels and
+   upslope masks (bitwise its plain version, the same bits on a second
+   call, and the resolve sweeps' fixpoint); the distance, resolve and Strahler
    sweeps against the plain sweeps over whole rows); Rho8's diagonal share
    on 256² planes at θ = 10° and 30° within 0.015 of θ/45; the scan fill
    sweep
@@ -69,8 +72,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    Strahler order satisfying its defining equation at every cell (and
    bitwise equal to the Jacobi fixpoint at 2048×2176); three timed steps,
    the peak memory, the rotations of each fixpoint, and which engine
-   finished the watershed and upslope calls (the resolve sweeps, or
-   pointer doubling past their cap);
+   finished the watershed and upslope calls (on the card the successor
+   jump, which runs no rotation);
 11. rho8 at 10240²: ε-fill → ``rho8_flowdirs(seed=0)`` →
    ``d8_accumulation`` (pyrichdem's ``FlowAccumulation(method="Rho8")``);
    codes sound, mass conserved exactly (the native engine's float64
@@ -87,8 +90,10 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    accumulation, distance, D∞, multi-flow, resolve and Strahler sweeps also
    transposed; the scan sweep down on the api DEM at its ε; the multi-flow
    topological pass on config 4's Quinn planes, also bitwise the path's
-   own accumulation), then one call
-   of each timed beside its bound, with each sweep's time per row step and
+   own accumulation; the successor jump's labels and upslope mask on the
+   d8_methods path's codes and gauges, also bitwise the path's own), then
+   one call of each timed beside its bound (the jump's call: one of
+   each walk), with each sweep's time per row step and
    each kernel's registers and spill bytes a thread from the build's
    ``-Xptxas -v`` report, the scan sweep's cluster and the tiles of the
    distance, resolve and Strahler sweeps; every terrain attribute, and
@@ -131,12 +136,14 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the topological pass, ``mfd.MFD_TOPO``, an entry point of the
-multi-flow sweep's library, has a record of its own, ``mfd_topo``); the two-pass programs are two paths (``twopass_fill``,
-``twopass_accum``), whose launches and tile-width times each of their
-kernels' records carries under ``twopass``, and the sharded phase three
-(``sharded``, ``sharded_twopass``, ``sharded_mfd``), whose launches and
-block-shape times go under ``sharded``.  The line before the last is
-the per-kernel JSON record; the last
+multi-flow sweep's library, has a record of its own, ``mfd_topo``, and so
+has the successor jump, ``successor.RESOLVE_JUMP``, in the resolve
+sweep's: ``resolve_jump``); the two-pass programs are two paths
+(``twopass_fill``, ``twopass_accum``), whose launches and tile-width times
+each of their kernels' records carries under ``twopass``, and the sharded
+phase three (``sharded``, ``sharded_twopass``, ``sharded_mfd``), whose
+launches and block-shape times go under ``sharded``.  The line before the
+last is the per-kernel JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  The script imports no JAX and
 nothing of the JAX package.
 """
@@ -187,8 +194,9 @@ SHARDED_EPS = 1e-3
 SHARDED_MFD_EDGE = 4096
 SHARDED_NCCL_EDGE = 2048
 #: the kernels of the two-pass path: the local fill and the ring-pinned
-#: apply, D8 and flat resolution of the labels, the drain labels and the
-#: accumulation's links, and the [P2] local solves
+#: apply, D8 and flat resolution of the labels, the drain labels (the
+#: accumulation's links take the successor jump), and the [P2] local
+#: solves
 TWOPASS_KERNELS = ("fill_sweep", "d8", "dist_sweep", "resolve_sweep",
                    "accum_sweep")
 #: two-pass accumulation against the in-core one, on cells whose in-core
@@ -246,6 +254,12 @@ ISSUE_PER_CLOCK = {"fp32": 128, "int32": 64, "xu": 16}
 #:   rho8_d4     as d8 with 4 directions: 4 × (sub, div, compare)
 #:   resolve_sweep      value, code in, value out (4+1+4); pin test, code
 #:               decode, one select
+#:   resolve_jump       one call of each walk: code in, labels out (1+4);
+#:               code and seed in, mask out (1+1+1); a walk's decode and
+#:               pin test 6, its tile target 6, its rounds of jumps in
+#:               shared memory about 8 × (compare, select), the final
+#:               decode 3: about 30 a walk (its pointers and border slots
+#:               are its own scratch, not counted)
 #:   strahler_sweep     order, code in, order out (4+1+4); 8 compares and
 #:               selects, 7 max, 8 × (compare, and, add), 3 for the update
 #:               and 2 for max(old, upd)
@@ -260,7 +274,7 @@ COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
         "dist_sweep": (13, 9), "terrain": (9, 40), "dinf_sweep": (16, 36),
         "mfd_sweep": (44, 40), "mfd_topo": (40, 16),
         "rho8": (6, {"int32": 40, "xu": 1, "fp32": 41}),
-        "rho8_d4": (6, 12), "resolve_sweep": (9, 4),
+        "rho8_d4": (6, 12), "resolve_sweep": (9, 4), "resolve_jump": (8, 60),
         "strahler_sweep": (9, 52), "fill_scan": (12, 100)}
 
 
@@ -305,17 +319,20 @@ REPLACES = {
     "mfd_topo": ("no TPU kernel", None),
     "rho8": ("richdem_tpu/ops/pallas_stencils.py:119", None),
     "resolve_sweep": ("richdem_tpu/ops/pallas_folded.py:606", None),
+    "resolve_jump": ("no TPU kernel", None),
     "strahler_sweep": ("richdem_tpu/ops/pallas_folded.py:729", None),
     "fill_scan": ("richdem_tpu/ops/pallas_scan.py:876", None),
 }
 #: The path whose launch counts each kernel's record reports: the
 #: multi-flow sweep's is the sharded one, as the in-core path takes the
-#: topological pass.
+#: topological pass; the resolve sweep's the two-pass fill's tile labels,
+#: as the card's watershed and upslope calls take the successor jump (on
+#: the d8_methods path, the basin step of the benchmark's d8_basins cell).
 PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "dist_sweep": "config2", "terrain": "terrain",
            "dinf_sweep": "dinf_twi", "mfd_sweep": "sharded_mfd",
-           "mfd_topo": "quinn_mfd",
-           "rho8": "rho8", "resolve_sweep": "d8_methods",
+           "mfd_topo": "quinn_mfd", "resolve_jump": "d8_methods",
+           "rho8": "rho8", "resolve_sweep": "twopass_fill",
            "strahler_sweep": "d8_methods", "fill_scan": "api"}
 #: Kernels redesigned since their port, and in which PR: the row-ring fill
 #: and accumulation sweeps (``csrc/row_ring.cuh``), the shared-memory D8
@@ -330,11 +347,13 @@ REDESIGNED = {"fill_sweep": 6, "accum_sweep": 6, "d8": 7, "mfd_sweep": 7,
               "dist_sweep": 9, "strahler_sweep": 9, "terrain": 10,
               "rho8": 10}
 #: The record of a second entry point of a source, by its C symbol: the
-#: topological pass is built in the multi-flow sweep's library.
-ENTRY_RECORDS = {"rd_mfd_topo": "mfd_topo"}
-#: Its entry functions, which share that library's ptxas report, are the
-#: ones in namespace rd::topo (this, in their mangled names).
-TOPO_MANGLED = "2rd4topo"
+#: topological pass is built in the multi-flow sweep's library, the
+#: successor jump in the resolve sweep's.
+ENTRY_RECORDS = {"rd_mfd_topo": "mfd_topo", "rd_resolve_jump": "resolve_jump"}
+#: Their entry functions, which share their library's ptxas report, by a
+#: part of their mangled names: those in namespace rd::topo, and those
+#: templated on the jump's tag.
+ENTRY_MANGLED = {"mfd_topo": "2rd4topo", "resolve_jump": "ResolveSweepJump"}
 
 
 def kname(kernel):
@@ -653,6 +672,19 @@ def succ_sweep_pair(name, v0, code, code_t, err, what):
             f"{what}, transposed up")
 
 
+def jump_pair(fd, seeds, err, what):
+    """The successor jump's kernels and its plain version on the same codes
+    (and seeds, for the upslope mask): bitwise, and the kernels' second
+    call the same bits; returns the kernels' result."""
+    from richdem_tpu_torch.ops import successor
+
+    got, again = (successor.successor_jump(fd, seeds),
+                  successor.successor_jump(fd, seeds))
+    bitwise("resolve_jump", ((got, successor.successor_jump_plain(fd, seeds)),
+                             (again, got)), err, what)
+    return got
+
+
 def resolve_starts(fd, seeds):
     """(what, effective codes, init, pinned) of the two successor resolves:
     watershed labels and the upslope cells of ``seeds``."""
@@ -776,6 +808,7 @@ def phase_build(kernels):
     from richdem_tpu_torch.ops import fill, flats, flowdirs, successor
     SHAPES["fill_scan"] = fill.fill_scan_shape(MAIN)
     SHAPES["resolve_sweep"] = successor.resolve_shape()
+    SHAPES["resolve_jump"] = successor.jump_shape()
     SHAPES["dist_sweep"] = flats.dist_shape()
     SHAPES["strahler_sweep"] = successor.strahler_shape()
     for name in ("d8", "rho8", "terrain"):
@@ -783,8 +816,9 @@ def phase_build(kernels):
     log("build", f"scan fill sweep at {MAIN} columns: {SHAPES['fill_scan']}"
         f", {RESOURCES['fill_scan']}; "
         + "; ".join(f"{name}: {SHAPES[name]}, {RESOURCES[name]}"
-                    for name in ("resolve_sweep", "dist_sweep",
-                                 "strahler_sweep", "d8", "rho8", "terrain")))
+                    for name in ("resolve_sweep", "resolve_jump",
+                                 "dist_sweep", "strahler_sweep", "d8",
+                                 "rho8", "terrain")))
     log("build", f"{len(kernels)} kernels and the native engine loaded in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{kname(k)} " + ("cached" if k.build_seconds is None
@@ -867,6 +901,13 @@ def phase_kernel_vs_plain(dev, err):
                                  f"({rk}/{rp} rotations)")
         log("kernel-vs-plain", f"resolve sweep ({what}): down and "
             f"transposed up, and the fixpoint, bitwise ({rk} rotations)")
+        jump = jump_pair(fd, seeds if what == "upslope" else None, err,
+                         f"{what}, {shape}")
+        bitwise("resolve_jump", ((jump, got > 0 if what == "upslope"
+                                  else got),), err,
+                f"{what}, {shape}, against the resolve sweeps' fixpoint")
+    log("kernel-vs-plain", "successor jump (watersheds, upslope): bitwise "
+        "its plain version, twice, and the resolve sweeps' fixpoint")
     sc = fd.clamp(min=0).to(torch.int8)
     succ_sweep_pair("strahler_sweep", (fd >= 0).to(torch.int32), sc,
                     successor.transpose_codes(sc), err, shape)
@@ -1467,11 +1508,12 @@ def phase_terrain(dev, card, z, kernels):
 
 def kernel_resources(kernel):
     """Registers and spill bytes a thread of ``kernel``, the largest over
-    its entries, from the build's ``-Xptxas -v`` report (the topological
-    pass's entries, TOPO_MANGLED, apart from the multi-flow sweep's)."""
-    topo = kname(kernel) == "mfd_topo"
+    its entries, from the build's ``-Xptxas -v`` report (a second entry
+    point's functions, ENTRY_MANGLED, apart from its library's first)."""
+    part = ENTRY_MANGLED.get(kname(kernel))
     entries = {e: v for e, v in kernel.resources().items()
-               if (TOPO_MANGLED in e) == topo}
+               if (part in e if part else
+                   not any(p in e for p in ENTRY_MANGLED.values()))}
     if not entries:
         raise AssertionError(f"no ptxas report of {kname(kernel)}'s "
                              "entries")
@@ -1745,7 +1787,7 @@ def phase_d8_methods(dev, card, kernels, z):
     torch.cuda.reset_peak_memory_stats(dev)
     out, launches = run_path(
         "d8_methods", kernels,
-        ("fill_sweep", "d8", "dist_sweep", "accum_sweep", "resolve_sweep",
+        ("fill_sweep", "d8", "dist_sweep", "accum_sweep", "resolve_jump",
          "strahler_sweep"), lambda: d8_methods_step(z, eps))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     fd, labels = out["resolved"], out["labels"]
@@ -1833,8 +1875,10 @@ def phase_rho8(dev, card, kernels, z):
 def phase_methods_timing(dev, card, dm, r8, err, times):
     """The resolve, Strahler and Rho8 kernels against their plain versions
     on the new paths' own codes at MAIN² (a down and a transposed up sweep
-    from each resolve's start and from order 1), then one call of each
-    timed."""
+    from each resolve's start and from order 1), the successor jump's
+    labels and upslope mask against its plain version and the d8_methods
+    path's own, then one call of each timed (the jump's: one of each
+    walk)."""
     import torch
     from richdem_tpu_torch.ops import flowdirs, successor
 
@@ -1849,6 +1893,17 @@ def phase_methods_timing(dev, card, dm, r8, err, times):
             lambda v=init, c=code: successor.resolve_sweep(v, c, False),
             lambda v=init, c=code: successor.resolve_sweep_plain(v, c,
                                                                  False)))
+    gauges = dm["gauges"]
+    jl = jump_pair(fd, None, err, f"{MAIN}x{MAIN}, watersheds")
+    ju = jump_pair(fd, gauges, err, f"{MAIN}x{MAIN}, upslope")
+    bitwise("resolve_jump", ((jl, dm["labels"]), (ju, dm["upslope"])), err,
+            f"{MAIN}x{MAIN}, the d8_methods path's own")
+    del jl, ju
+    calls["resolve_jump"] = (
+        lambda: (successor.successor_jump(fd),
+                 successor.successor_jump(fd, gauges)),
+        lambda: (successor.successor_jump_plain(fd),
+                 successor.successor_jump_plain(fd, gauges)))
     o0 = (fd >= 0).to(torch.int32)
     sc = fd.clamp(min=0).to(torch.int8)
     succ_sweep_pair("strahler_sweep", o0, sc, successor.transpose_codes(sc),
@@ -1866,8 +1921,9 @@ def phase_methods_timing(dev, card, dm, r8, err, times):
     bitwise("rho8", ((got, ref), (r8["codes"], ref)), err, f"{MAIN}x{MAIN}")
     log("timing", f"resolve (watersheds, upslope) and Strahler sweeps at "
         f"{MAIN}x{MAIN} on the d8_methods path's codes, down and transposed "
-        f"up (against the plain sweeps over whole rows), and Rho8 codes on "
-        f"the rho8 path's surface: bitwise")
+        f"up (against the plain sweeps over whole rows), the successor "
+        f"jump's labels and upslope mask (against its plain version and the "
+        f"path's own), and Rho8 codes on the rho8 path's surface: bitwise")
     for name, (kern, plain) in calls.items():
         time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
     time_variants("rho8", {
@@ -2198,7 +2254,7 @@ def phase_twopass(dev, card, kernels, err):
         del fd, wts, got, want
         timer2, stats2 = debug.PhaseTimer(), {}
         _, acc_launches, acc_s, _ = peak_run(
-            "twopass_accum", ("accum_sweep", "resolve_sweep"),
+            "twopass_accum", ("accum_sweep", "resolve_jump"),
             lambda: out_of_core_accum_d8(
                 path("fd.npy"), out_path=path("acc.npy"), tile=tile,
                 method="twopass", stats=stats2, device=dev, timer=timer2))
@@ -2584,7 +2640,8 @@ def main():
     kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP,
                flats.DIST_SWEEP, terrain.TERRAIN, dinf.DINF_SWEEP,
                mfd.MFD_SWEEP, mfd.MFD_TOPO, flowdirs.RHO8,
-               successor.RESOLVE_SWEEP, successor.STRAHLER_SWEEP,
+               successor.RESOLVE_SWEEP, successor.RESOLVE_JUMP,
+               successor.STRAHLER_SWEEP,
                fill.FILL_SCAN]
     phase_build(kernels)
     err = {kname(k): 0.0 for k in kernels}
@@ -2606,7 +2663,8 @@ def main():
     phase_flow_timing(dev, card, c4, err, times)
     del c4
     dm, path_launches["d8_methods"] = phase_d8_methods(dev, card, kernels, z)
-    dm = {k: dm[k] for k in ("resolved", "gauges")}  # what timing reads
+    # what timing reads
+    dm = {k: dm[k] for k in ("resolved", "gauges", "labels", "upslope")}
     r8, path_launches["rho8"] = phase_rho8(dev, card, kernels, z)
     phase_methods_timing(dev, card, dm, r8, err, times)
     del dm, r8, z
@@ -2614,6 +2672,7 @@ def main():
     phase_scan_timing(dev, card, dem, mask, eps, err, times)
     del dem, mask
     twopass_launches, twopass_times = phase_twopass(dev, card, kernels, err)
+    path_launches.update(twopass_launches)
     sharded_launches, sharded_times, blocks = phase_sharded(
         dev, card, kernels, err, main_best)
     path_launches.update(sharded_launches)

@@ -22,7 +22,8 @@ import threading
 
 __all__ = ["Kernel", "SWEEP_TILE", "SWEEP_STAGES", "FLOW_TILE",
            "FLOW_HALO", "RESOLVE_TILE", "RESOLVE_HALO", "DIST_TILE",
-           "DIST_HALO", "STRAHLER_TILE", "STRAHLER_HALO", "SCAN_CLUSTER",
+           "DIST_HALO", "STRAHLER_TILE", "STRAHLER_HALO", "JUMP_TILE",
+           "JUMP_THREADS", "SCAN_CLUSTER",
            "SCAN_THREADS", "NVCC_FLAGS",
            "find_nvcc", "ptxas_resources", "stream_handle"]
 
@@ -67,6 +68,14 @@ DIST_HALO = 64
 STRAHLER_TILE = 128
 STRAHLER_HALO = 32
 
+#: Edge of the square tile of the successor jump's local pass
+#: (``csrc/successor_jump.cuh``: one block a tile, its cells' targets in
+#: shared memory), and the threads of its blocks.  The tile changes only
+#: the speed: the result is the fixpoint at every tile.  Chosen on an H100
+#: (PERF.md).
+JUMP_TILE = 64
+JUMP_THREADS = 256
+
 #: The scan fill sweep's cluster (``csrc/fill_scan.cu``): the most CTAs
 #: it holds (above 8, a non-portable cluster size) and the most consumer
 #: threads a CTA.  The shape never changes the result.  Chosen on an H100
@@ -86,6 +95,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               f"-DRD_DIST_TILE={DIST_TILE}", f"-DRD_DIST_HALO={DIST_HALO}",
               f"-DRD_STRAHLER_TILE={STRAHLER_TILE}",
               f"-DRD_STRAHLER_HALO={STRAHLER_HALO}",
+              f"-DRD_JUMP_TILE={JUMP_TILE}",
+              f"-DRD_JUMP_THREADS={JUMP_THREADS}",
               f"-DRD_SCAN_CLUSTER={SCAN_CLUSTER}",
               f"-DRD_SCAN_THREADS={SCAN_THREADS}"]
 

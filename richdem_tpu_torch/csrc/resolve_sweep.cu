@@ -26,8 +26,14 @@
 // rule is one decode and one select, so a row step is the latency of its
 // shared-memory reads, its select and one barrier.  No change flag: the
 // caller compares whole rotations (int32 values, so equality is exact).
+//
+// On the card, watershed labels and upslope masks take the pointer jumping
+// of successor_jump.cuh (rd_resolve_jump below), which reaches the same
+// fixpoint without rotations; the sweep stays for the two-pass tile labels
+// (parallel/consumer.py), whose pins and starts are their own.
 
 #include "seam_walk.cuh"
+#include "successor_jump.cuh"
 
 #ifndef RD_RESOLVE_TILE
 #define RD_RESOLVE_TILE 128
@@ -100,4 +106,30 @@ extern "C" int rd_resolve_sweep(const int32_t* v_in, const int8_t* code,
                                 int* flags, int flags_len, void* stream) {
   return rd::walk::launch<ResolveSweep>({v_in, code}, v_out, h, w, reverse,
                                         flags, flags_len, stream);
+}
+
+// The fixpoint by pointer jumping (successor_jump.cuh): watershed labels
+// into int32 `out` when `seeds` is null (`ptr` may be `out`), else the
+// upslope mask of the seed bytes into bool `out`.  `border`: border_len
+// int32 of scratch, at least rd::jump::slots_of(h, w) +
+// rd::jump::rounds_of(slots); too few, or a grid past 2^30 cells or slots,
+// return cudaErrorInvalidValue.
+extern "C" int rd_resolve_jump(const int8_t* code, const uint8_t* seeds,
+                               int32_t* ptr, void* out, int* border,
+                               long long border_len, int h, int w,
+                               void* stream) {
+  if (seeds == nullptr)
+    return rd::launch_successor_jump<false>(
+        code, seeds, ptr, static_cast<int32_t*>(out), border, border_len, h,
+        w, stream);
+  return rd::launch_successor_jump<true>(code, seeds, ptr,
+                                         static_cast<uint8_t*>(out), border,
+                                         border_len, h, w, stream);
+}
+
+// The jump's shape into out[0..1]: tile edge, threads a block.
+extern "C" int rd_resolve_jump_shape(int* out) {
+  out[0] = rd::jump::T;
+  out[1] = rd::jump::NT;
+  return 0;
 }

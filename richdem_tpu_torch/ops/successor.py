@@ -1,5 +1,6 @@
 """Successor fixpoints over D8 codes: the successor resolve (watershed
-labels, upslope masks) and Strahler order, by Gauss–Seidel sweeps.
+labels, upslope masks), by pointer jumping on a card and by Gauss–Seidel
+sweeps elsewhere, and Strahler order, by sweeps.
 
 Counterpart of ``richdem_tpu.ops.pallas_folded`` lines 595-852
 (``successor_resolve_folded``, ``strahler_folded``).  One resolve sweep
@@ -19,6 +20,20 @@ rows); a CPU tensor through :func:`resolve_sweep_plain` and
 bitwise the kernel's.  The resolve's pin rides in the sign bit of the code
 byte (:func:`pack_codes`).
 
+The resolve's fixpoint is unique: each cell takes the value of the first
+pinned cell on its path, whatever the schedule.  :func:`successor_jump`
+reaches it for watershed labels and upslope masks without sweeps: each
+cell's path is followed within its tile to a stop or to the first cell
+outside the tile, then pointers double over the tiles' border cells
+(``csrc/successor_jump.cuh``, entry points of the resolve sweep's library;
+plain version :func:`successor_jump_plain`).  A sweep carries a value only
+where the path runs with it, so a path's every turn costs a rotation; the
+jump costs log₂ of the path's length.  :mod:`~richdem_tpu_torch.methods`
+takes it for a CUDA tensor; a CPU tensor keeps the plain sweeps.  The
+resolve sweep kernel stays for the two-pass tile labels
+(``parallel/consumer.py``), which call :func:`successor_resolve_info` with
+starts of their own.
+
 :func:`successor_table` (flat successor indices) serves the plain pointer
 doubling of :mod:`richdem_tpu_torch.methods` and of
 ``accum.d8_accumulation_doubling``.
@@ -32,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from richdem_tpu_torch import topology
-from richdem_tpu_torch._build import Kernel, stream_handle
+from richdem_tpu_torch._build import JUMP_TILE, Kernel, stream_handle
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
                                           accumulation_rotations,
@@ -42,7 +57,9 @@ __all__ = ["RESOLVE_SWEEP", "STRAHLER_SWEEP", "successor_table",
            "effective_codes", "pack_codes", "transpose_codes",
            "resolve_sweep_plain", "block_flags", "resolve_sweep",
            "walk_shape", "resolve_shape",
-           "successor_resolve_info",
+           "successor_resolve_info", "RESOLVE_JUMP", "jump_slots",
+           "jump_fits", "jump_shape", "successor_jump_plain",
+           "successor_jump",
            "successor_resolve", "strahler_sweep_plain", "strahler_sweep",
            "strahler_shape", "strahler_fixpoint_info", "strahler_fixpoint"]
 
@@ -51,6 +68,12 @@ _INT = ctypes.c_int
 _SWEEP_ARGS = [_P, _P, _P, _INT, _INT, _INT, _P, _INT, _P]
 RESOLVE_SWEEP = Kernel("resolve_sweep", "rd_resolve_sweep", _SWEEP_ARGS)
 STRAHLER_SWEEP = Kernel("strahler_sweep", "rd_strahler_sweep", _SWEEP_ARGS)
+#: Pointer jumping to the resolve's fixpoint, an entry point of the
+#: resolve sweep's library (``csrc/resolve_sweep.cu`` over
+#: ``csrc/successor_jump.cuh``).
+RESOLVE_JUMP = Kernel("resolve_sweep", "rd_resolve_jump",
+                      [_P, _P, _P, _P, _P, ctypes.c_longlong, _INT, _INT,
+                       _P])
 
 #: What an off-grid cell reads as in each sweep (the kernels' ``OFF``).
 RESOLVE_OFF = -1
@@ -295,6 +318,111 @@ def successor_resolve(flowdirs, init, pinned, max_rotations=64,
     if return_info:
         return v, rotations, done
     return v
+
+
+def jump_slots(h, w, tile=JUMP_TILE):
+    """``(slots, rounds)`` of the successor jump on an h × w grid: the
+    border slots, ``4·tile − 4`` a tile in the frame of a whole tile, and
+    the rounds of doubling over them, one more than it takes to pass the
+    longest chain of slots."""
+    slots = -(-h // tile) * -(-w // tile) * (4 * tile - 4)
+    rounds = 1
+    while (1 << rounds) < slots:
+        rounds += 1
+    return slots, rounds + 1
+
+
+def jump_fits(shape):
+    """Whether the jump's kernels take a grid of ``shape``: they index
+    cells and border slots in int32, each below 2**30."""
+    h, w = shape
+    return h * w <= 2**30 and jump_slots(h, w)[0] < 2**30
+
+
+def jump_shape():
+    """The jump's local pass (the library built if needed): ``tile`` edge
+    and ``threads`` a block."""
+    out = (ctypes.c_int * 2)()
+    RESOLVE_JUMP.entry("rd_resolve_jump_shape", [_P])(out)
+    return dict(zip(("tile", "threads"), out))
+
+
+def successor_jump_plain(flowdirs, seeds=None, tile=JUMP_TILE):
+    """Plain version of the successor jump (``csrc/successor_jump.cuh``):
+    watershed labels (int32) when ``seeds`` is None, else the upslope mask
+    of ``seeds`` (bool).  A cell whose code is outside 1..8 or points off
+    the grid, or a seed, is pinned; every other cell takes the value of the
+    first pinned cell on its path (its flat index, or whether it is a
+    seed).  Each path is followed within its ``tile`` × ``tile`` tile to a
+    stop or to the first cell outside it, by doubling; then pointers double
+    over those exits.  A cell on a cycle, or upstream of one, reads -1 or
+    False, as the resolve sweeps leave it."""
+    code = flowdirs.to(torch.int64)
+    h, w = code.shape
+    n = h * w
+    own, succ, valid = _targets(code)
+    own, succ = own.reshape(-1), succ.reshape(-1)
+    pinned = ~(valid & (code <= 8)).reshape(-1)
+    if seeds is None:
+        value, cycle = own, -1
+    else:
+        seed = seeds.to(device=code.device, dtype=torch.bool).reshape(-1)
+        pinned |= seed
+        value, cycle = seed.to(torch.int64), 0
+    succ = torch.where(pinned, own, succ)
+    tiles_x = -(-w // tile)
+    tile_of = own // max(w, 1) // tile * tiles_x + own % max(w, 1) // tile
+    # a stop of value v as ~(v + 1) < 0; else the cell the path goes on at
+    res = torch.where(pinned, ~(value + 1), succ)
+    nxt = torch.where(~pinned & (tile_of[succ] == tile_of), succ, -1)
+    for _ in range((tile * tile).bit_length()):
+        go = torch.nonzero(nxt >= 0).squeeze(1)
+        j = nxt[go]
+        res[go] = res[j]
+        nxt[go] = nxt[j]
+    res = torch.where(nxt >= 0, ~(cycle + 1), res)
+    for _ in range(max(n, 2).bit_length()):
+        go = torch.nonzero(res >= 0).squeeze(1)
+        res[go] = res[res[go]]
+    out = torch.where(res >= 0, cycle, ~res - 1).view(h, w)
+    return out.to(torch.int32) if seeds is None else out.to(torch.bool)
+
+
+def successor_jump(flowdirs, seeds=None):
+    """Watershed labels (int32) when ``seeds`` is None, else the upslope
+    mask of ``seeds`` (bool), of D8 codes, as :func:`successor_jump_plain`
+    defines them.  A CUDA tensor launches ``csrc/successor_jump.cuh``'s
+    three kernels (the tiles' local pass, the rounds over the border
+    slots, the final pass) with no host sync, and raises for a grid that
+    :func:`jump_fits` refuses; a CPU tensor runs the plain version."""
+    if not flowdirs.is_cuda:
+        return successor_jump_plain(flowdirs, seeds)
+    code = (flowdirs if flowdirs.dtype == torch.int8
+            else flowdirs.clamp(-1, 9).to(torch.int8)).contiguous()
+    h, w = code.shape
+    if not jump_fits((h, w)):
+        raise ValueError(f"{h}x{w}: the successor jump takes at most 2**30 "
+                         "cells and border slots")
+    dev = code.device
+    if seeds is None:
+        out = torch.empty((h, w), dtype=torch.int32, device=dev)
+        ptr, seed_ptr = out, None
+    else:
+        seeds = seeds.to(device=dev, dtype=torch.bool).contiguous()
+        if seeds.shape != code.shape:
+            raise ValueError(f"seeds {tuple(seeds.shape)}: expected "
+                             f"{(h, w)}")
+        out = torch.empty((h, w), dtype=torch.bool, device=dev)
+        ptr = torch.empty((h, w), dtype=torch.int32, device=dev)
+        seed_ptr = seeds.data_ptr()
+    if h == 0 or w == 0:
+        return out
+    slots, rounds = jump_slots(h, w)
+    border = torch.empty(slots + rounds, dtype=torch.int32, device=dev)
+    RESOLVE_JUMP.launch(code.data_ptr(), seed_ptr, ptr.data_ptr(),
+                        out.data_ptr(), border.data_ptr(), border.numel(), h,
+                        w, stream_handle(dev))
+    return out
 
 
 def strahler_fixpoint_info(flowdirs, max_rotations=64, sweep=strahler_sweep):

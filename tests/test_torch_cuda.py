@@ -36,7 +36,11 @@ on grids wider than the card's resident blocks, and through a whole Quinn
 fixpoint at 512².  The topological multi-flow pass (its count and solve
 kernels) is bitwise its plain version and itself on a second run, on
 those shapes with holes and at 512², and hands a field with a cycle to
-the sweeps.  The two-pass programs at 1024² (tile 256) run the
+the sweeps.  The successor jump's kernels equal their plain version
+bitwise (and themselves on a second launch) on random codes with cycles
+and on Perlin codes at the ragged shapes, a row, a column and around tile
+edges, and the resolve sweeps' fixpoint at 1000×1100; the entry points
+take them on a card.  The two-pass programs at 1024² (tile 256) run the
 fill, D8, distance, resolve and accumulation kernels and equal the
 in-core results and the native consumer bitwise, as does the ε Schwarz
 fill the in-core ε-fill from BIG; the min-plus names run the fill kernel
@@ -511,6 +515,104 @@ def test_methods_match_doubling_and_jacobi(dev, succ_codes):
                        methods.upslope_doubling(seeds, fd))
     assert torch.equal(methods.strahler_order(fd),
                        methods.strahler_jacobi(fd, max_iters=1 << 16))
+
+
+# -- the successor jump (csrc/successor_jump.cuh) ---------------------------
+
+#: The kernels' ragged shapes, a row and a column, one tile, a cell past
+#: a tile each way, a cell short of two
+JUMP_SHAPES = SHAPES + [(1, 1), (1, 4099), (4099, 1), (64, 64), (65, 129),
+                        (127, 63)]
+
+
+def _jump_held(fd, seeds=None):
+    """The jump's kernels ↔ ``successor_jump_plain``: bitwise, and the
+    same bits on a second launch; returns the kernels' result."""
+    before = successor.RESOLVE_JUMP.launches
+    got = successor.successor_jump(fd, seeds)
+    again = successor.successor_jump(fd, seeds)
+    torch.cuda.synchronize()
+    assert successor.RESOLVE_JUMP.launches == before + 2
+    assert torch.equal(got, successor.successor_jump_plain(fd, seeds))
+    assert torch.equal(again, got)
+    return got
+
+
+@pytest.mark.parametrize("shape", JUMP_SHAPES)
+def test_resolve_jump_kernels_match_plain(dev, shape):
+    """Labels and upslope masks of random codes in -1..8 (cycles among
+    them) and of the D8 codes of an ε-filled Perlin DEM with holes:
+    bitwise the plain version, and the same bits twice."""
+    rng = np.random.default_rng(shape[0] + 7 * shape[1])
+    seeds = torch.from_numpy(rng.random(shape) < 0.05).to(dev)
+    fd = torch.from_numpy(rng.integers(-1, 9, shape).astype(np.int8)).to(dev)
+    _jump_held(fd)
+    _jump_held(fd, seeds)
+    z, mask = _dem(shape, dev, seed=shape[1])
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=1e-3)
+    assert done
+    fd = flowdirs.d8_core(filled, mask)
+    assert (_jump_held(fd) >= 0).all()
+    _jump_held(fd, seeds)
+
+
+def test_resolve_jump_is_the_sweeps_fixpoint(dev, succ_codes):
+    """At 1000×1100, with and without codes off the grid (top row N, left
+    column W): the kernels' labels and masks are the resolve sweeps'
+    fixpoint on the card, bit for bit."""
+    fd = succ_codes.clone()
+    for outward in (False, True):
+        if outward:
+            fd[0, 1:][fd[0, 1:] >= 0] = 3
+            fd[1:, 0][fd[1:, 0] >= 0] = 1
+        for kind in ("watersheds", "upslope"):
+            fd_eff, init, pinned = _resolve_start(fd, kind)
+            want, _, done = successor.successor_resolve_info(fd_eff, init,
+                                                             pinned)
+            assert done
+            if kind == "watersheds":
+                assert torch.equal(_jump_held(fd), want)
+            else:
+                assert torch.equal(_jump_held(fd, init > 0), want > 0)
+
+
+def _serpentine(n):
+    """Each even row flows E and each odd row W, then S at the row's end;
+    the path's last cell is the one terminal."""
+    fd = np.empty((n, n), np.int8)
+    fd[0::2], fd[1::2] = 5, 1
+    fd[0::2, -1], fd[1::2, 0] = 7, 7
+    fd[-1, -1 if n % 2 else 0] = 0
+    return fd
+
+
+def test_methods_take_the_jump_on_the_card(dev, succ_codes):
+    """On a CUDA tensor the entry points run the jump and no sweep, report
+    ``(0, "jump")`` and return the plain sweeps' fixpoint; a serpentine,
+    past the sweeps' cap, needs no doubling; a cycle still raises."""
+    fd = succ_codes
+    _, seeds, _ = _resolve_start(fd, "upslope")
+    seeds = seeds > 0
+    before = successor.RESOLVE_SWEEP.launches
+    labels, rot, engine = methods.watersheds_from_flowdirs(fd,
+                                                           return_info=True)
+    up, urot, uengine = methods.upslope_cells(seeds, fd, return_info=True)
+    torch.cuda.synchronize()
+    assert successor.RESOLVE_SWEEP.launches == before
+    assert (rot, engine) == (urot, uengine) == (0, "jump")
+    assert torch.equal(labels.cpu(), methods.watersheds_from_flowdirs(
+        fd.cpu(), device="cpu"))
+    assert torch.equal(up.cpu(), methods.upslope_cells(seeds.cpu(), fd.cpu(),
+                                                       device="cpu"))
+    serp = torch.from_numpy(_serpentine(2049)).to(dev)
+    labels, rot, engine = methods.watersheds_from_flowdirs(serp,
+                                                           return_info=True)
+    assert (rot, engine) == (0, "jump")
+    assert torch.equal(labels, methods.watersheds_doubling(serp))
+    cyc = torch.zeros((8, 9), dtype=torch.int8, device=dev)
+    cyc[2, 2], cyc[2, 3], cyc[3, 3], cyc[3, 2], cyc[1, 2] = 5, 7, 1, 3, 7
+    with pytest.raises(ValueError, match="cycle: 5 cells"):
+        methods.watersheds_from_flowdirs(cyc)
 
 
 #: One CTA (45 columns, a tall thin raster); a ragged last CTA (1100: 3

@@ -9,7 +9,10 @@ interpret mode with small folds and strips.  All results are integers and
 every fixpoint is unique on an acyclic code raster, so every comparison is
 exact.  One plain resolve sweep and one plain Strahler sweep are also
 held against cell-by-cell sweeps over whole rows: the kernels' tiles trade
-edge values, so no tile width shows in one sweep.
+edge values, so no tile width shows in one sweep.  The plain successor
+jump (``successor_jump_plain``, the card's engine for labels and upslope
+masks) is held against the sweeps' fixpoint and the reference at several
+tiles, on cycles too, where it leaves what the sweeps leave.
 """
 
 import functools
@@ -31,6 +34,7 @@ from richdem_tpu.ops import pallas_folded
 import richdem_tpu_torch as rt
 from richdem_tpu_torch import methods as tm
 from richdem_tpu_torch import topology
+from richdem_tpu_torch._build import JUMP_TILE
 from richdem_tpu_torch.ops import accum as tacc
 from richdem_tpu_torch.ops import fill as tfill
 from richdem_tpu_torch.ops import flowdirs as tflow
@@ -356,3 +360,160 @@ def test_d8_methods_slice_vs_jax():
             (rt.upslope_cells(gauges, tfd),
              jm.upslope_cells(jnp.asarray(gauges.numpy()), jfd))):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- the successor jump (plain version of csrc/successor_jump.cuh) ----------
+
+#: Tiles of the plain jump: the kernels' (wider than a case's rows or
+#: columns), one that divides no side of any case, and one that divides
+#: the tile-edge case's
+JUMP_TILES = [JUMP_TILE, 7, 16]
+
+
+def _with_stops(fd, seed):
+    """A copy of ``fd`` with about 5 % of its cells NO_FLOW and 5 % nodata
+    (code -1): pins inside the paths."""
+    rng = np.random.default_rng(seed)
+    out = fd.copy()
+    u = rng.random(fd.shape)
+    out[u < 0.05] = 0
+    out[(u >= 0.05) & (u < 0.1)] = -1
+    return out
+
+
+def _tile_edges():
+    """A path along a tile edge of tile 16: every cell flows S, but rows 15
+    and 16 (the two sides of a tile edge) flow E and W to the edge columns,
+    and column 31 (the last of a tile) flows S to the bottom row, which is
+    NO_FLOW."""
+    fd = np.full((48, 40), 7, np.int8)
+    fd[15, :], fd[16, :] = 5, 1
+    fd[15, -1], fd[16, 0] = 7, 7
+    fd[:, 31] = 7
+    fd[-1, :] = 0
+    return fd
+
+
+JUMP_CASES = {
+    "perlin-64x80": lambda: _codes((64, 80), 8, False),
+    "perlin-96x200-outward": lambda: _codes((96, 200), 3, True),
+    "noflow-nodata": lambda: _with_stops(_codes((64, 80), 8, False), 4),
+    "tile-edge": _tile_edges,
+    "serpentine-128": lambda: _serpentine(128),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jump_case(name):
+    """The case's codes, seeds, and the references' labels and mask (the
+    JAX package's, each bitwise the CPU entry points': the resolve sweeps'
+    fixpoint, finished by doubling past the cap on the serpentine)."""
+    fd = JUMP_CASES[name]()
+    seeds = _seeds(fd, 2)
+    seeds[-1, fd.shape[1] // 2] = True
+    labels = np.asarray(jm.watersheds_from_flowdirs(jnp.asarray(fd)))
+    up = np.asarray(jm.upslope_cells(jnp.asarray(seeds), jnp.asarray(fd)))
+    np.testing.assert_array_equal(
+        rt.watersheds_from_flowdirs(fd, device="cpu").numpy(), labels)
+    np.testing.assert_array_equal(
+        rt.upslope_cells(seeds, fd, device="cpu").numpy(), up)
+    return fd, seeds, labels, up
+
+
+@pytest.mark.parametrize("tile", JUMP_TILES)
+@pytest.mark.parametrize("name", list(JUMP_CASES))
+def test_successor_jump_plain_vs_sweeps_and_jax(name, tile):
+    """Labels and upslope masks of the plain jump, at each tile, bitwise
+    the resolve sweeps' fixpoint and the JAX reference: Perlin codes with
+    nodata holes, codes off the grid, NO_FLOW and nodata inside the paths,
+    paths along tile edges, and the serpentine, on which the sweeps stop at
+    their cap and doubling finishes."""
+    fd, seeds, labels, up = _jump_case(name)
+    t = torch.from_numpy(fd)
+    got = S.successor_jump_plain(t, tile=tile)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), labels)
+    mask = S.successor_jump_plain(t, torch.from_numpy(seeds), tile=tile)
+    assert mask.dtype == torch.bool
+    np.testing.assert_array_equal(mask.numpy(), up)
+
+
+def _swept(fd, seeds=None):
+    """The resolve sweeps' fixpoint, started as the entry points start it:
+    the labels, or the upslope mask of ``seeds``."""
+    fd_eff = S.effective_codes(torch.from_numpy(fd))
+    pinned = fd_eff == 0
+    if seeds is None:
+        own = torch.arange(fd.size, dtype=torch.int32).view(fd.shape)
+        v, _, done = S.successor_resolve_info(fd_eff,
+                                              torch.where(pinned, own, -1),
+                                              pinned, 256)
+    else:
+        sd = torch.from_numpy(seeds)
+        v, _, done = S.successor_resolve_info(fd_eff, sd.to(torch.int32),
+                                              sd | pinned, 256)
+        v = v > 0
+    assert done
+    return v
+
+
+def _four_cycle():
+    """A four-cell cycle (E, S, W, N) in a NO_FLOW field, three cells
+    draining into it, and one cell of its own draining out."""
+    fd = np.zeros((8, 9), np.int8)
+    fd[2, 2], fd[2, 3], fd[3, 3], fd[3, 2] = 5, 7, 1, 3
+    fd[1, 2], fd[1, 1], fd[4, 3] = 7, 5, 3
+    fd[6, 6] = 5
+    return fd
+
+
+@pytest.mark.parametrize("tile", [2, 3, JUMP_TILE])
+def test_successor_jump_plain_on_a_cycle(tile):
+    """A four-cell cycle, inside one tile (2, 64) or across four (3): the
+    cycle and what drains into it read -1 and not upslope, as the sweeps
+    leave them; a seed on the cycle pins it, and everything upstream of the
+    seed is upslope."""
+    fd = _four_cycle()
+    t = torch.from_numpy(fd)
+    labels = S.successor_jump_plain(t, tile=tile)
+    stuck = np.zeros(fd.shape, bool)
+    stuck[1:5, 1:4] = fd[1:5, 1:4] != 0
+    assert int(stuck.sum()) == 7
+    np.testing.assert_array_equal(labels.numpy() < 0, stuck)
+    np.testing.assert_array_equal(labels.numpy(), _swept(fd).numpy())
+    for cell in ((1, 1), (2, 3), (6, 6)):
+        seeds = np.zeros(fd.shape, bool)
+        seeds[cell] = True
+        up = S.successor_jump_plain(t, torch.from_numpy(seeds), tile=tile)
+        np.testing.assert_array_equal(up.numpy(), _swept(fd, seeds).numpy())
+    assert int(up.sum()) == 1 and bool(up[6, 6])
+    seeds[:] = False
+    seeds[2, 3] = True
+    up = S.successor_jump_plain(t, torch.from_numpy(seeds), tile=tile)
+    assert int(up.sum()) == 7
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 70), (70, 1), (33, 47)])
+def test_successor_jump_plain_random_codes(shape):
+    """Codes drawn from -1..8, cycles among them, at tiles 2, 7 and 16:
+    bitwise the resolve sweeps' fixpoint."""
+    rng = np.random.default_rng(shape[0] * 100 + shape[1])
+    fd = rng.integers(-1, 9, shape).astype(np.int8)
+    seeds = rng.random(shape) < 0.1
+    labels, up = _swept(fd), _swept(fd, seeds)
+    for tile in (2, 7, 16):
+        t = torch.from_numpy(fd)
+        assert torch.equal(S.successor_jump_plain(t, tile=tile), labels)
+        assert torch.equal(
+            S.successor_jump_plain(t, torch.from_numpy(seeds), tile=tile),
+            up)
+
+
+def test_jump_slots_and_fits():
+    """The kernels' border slots and rounds, and the grids they take."""
+    assert S.jump_slots(64, 64) == (252, 9)
+    assert S.jump_slots(65, 129, tile=64) == (6 * 252, 12)
+    assert S.jump_slots(1, 1) == (252, 9)
+    assert S.jump_fits((10240, 10240)) and S.jump_fits((1 << 15, 1 << 15))
+    assert not S.jump_fits((1 << 15, (1 << 15) + 1))
+    assert not S.jump_fits((1, 1 << 30))
