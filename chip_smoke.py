@@ -101,8 +101,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    labels timed on the d8_methods codes beside the resolve sweep (another
    engine, a reference point);
 14. twopass — the [P1]/[P2] out-of-core programs on ``.npy`` rasters in a
-   temporary directory: first the path's five kernels (fill, D8, distance,
-   resolve and accumulation sweeps) on one 2048² tile, each bitwise its
+   temporary directory: first the path's five kernels (fill, D8, distance
+   and accumulation sweeps, the successor jump) on one 2048² tile, each
+   bitwise its
    plain version and timed beside its bound at that shape; then
    ``out_of_core_fill`` of the api path's DEM (10240² Perlin seed 0 with
    nodata holes; tile 2048, device consumer, tiles not cached) in exactly
@@ -131,8 +132,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    at 2048², bitwise the in-process mesh; then the seven kernels of these
    paths against their plain versions and timed beside their bounds at the
    shape their path gives them (an extended block for the fill, D8 and
-   terrain, a shard for the accumulation, distance, resolve and
-   multi-flow sweeps).
+   terrain, a shard for the accumulation, distance and multi-flow sweeps
+   and the successor jump).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the topological pass, ``mfd.MFD_TOPO``, an entry point of the
@@ -194,10 +195,10 @@ SHARDED_EPS = 1e-3
 SHARDED_MFD_EDGE = 4096
 SHARDED_NCCL_EDGE = 2048
 #: the kernels of the two-pass path: the local fill and the ring-pinned
-#: apply, D8 and flat resolution of the labels, the drain labels (the
-#: accumulation's links take the successor jump), and the [P2] local
+#: apply, D8 and flat resolution of the labels, the successor jump of the
+#: drain labels and of the accumulation's links, and the [P2] local
 #: solves
-TWOPASS_KERNELS = ("fill_sweep", "d8", "dist_sweep", "resolve_sweep",
+TWOPASS_KERNELS = ("fill_sweep", "d8", "dist_sweep", "resolve_jump",
                    "accum_sweep")
 #: two-pass accumulation against the in-core one, on cells whose in-core
 #: value reaches 2²⁴: float32 sums of more unit weights than that round,
@@ -319,20 +320,22 @@ REPLACES = {
     "mfd_topo": ("no TPU kernel", None),
     "rho8": ("richdem_tpu/ops/pallas_stencils.py:119", None),
     "resolve_sweep": ("richdem_tpu/ops/pallas_folded.py:606", None),
-    "resolve_jump": ("no TPU kernel", None),
+    "resolve_jump": ("richdem_tpu/ops/pallas_folded.py:606", None),
     "strahler_sweep": ("richdem_tpu/ops/pallas_folded.py:729", None),
     "fill_scan": ("richdem_tpu/ops/pallas_scan.py:876", None),
 }
 #: The path whose launch counts each kernel's record reports: the
 #: multi-flow sweep's is the sharded one, as the in-core path takes the
-#: topological pass; the resolve sweep's the two-pass fill's tile labels,
-#: as the card's watershed and upslope calls take the successor jump (on
-#: the d8_methods path, the basin step of the benchmark's d8_basins cell).
+#: topological pass; the successor jump's the d8_methods path (the basin
+#: step of the benchmark's d8_basins cell).  The resolve sweep runs on no
+#: path, as watershed labels, upslope masks and the two-pass tile labels
+#: take the jump: its record keeps its gates against its plain version and
+#: its time, and no launches.
 PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
            "dist_sweep": "config2", "terrain": "terrain",
            "dinf_sweep": "dinf_twi", "mfd_sweep": "sharded_mfd",
            "mfd_topo": "quinn_mfd", "resolve_jump": "d8_methods",
-           "rho8": "rho8", "resolve_sweep": "twopass_fill",
+           "rho8": "rho8", "resolve_sweep": None,
            "strahler_sweep": "d8_methods", "fill_scan": "api"}
 #: Kernels redesigned since their port, and in which PR: the row-ring fill
 #: and accumulation sweeps (``csrc/row_ring.cuh``), the shared-memory D8
@@ -2106,7 +2109,8 @@ def block_kernels(names, z, m, eps, err, card, times, phase, what):
     """Kernels ``names`` on one block ``z`` (mask ``m``) as the two-pass
     consumers and the sharded ops call them: each against its plain
     version (bitwise; terrain's atan to ATAN_RTOL), then one call of each
-    timed beside its bound at that shape (``times[name]``)."""
+    timed beside its bound at that shape (``times[name]``; the jump's
+    call: one of each walk, the upslope mask of the NO_FLOW cells)."""
     import torch
     from richdem_tpu_torch.ops import (accum, fill, flats, flowdirs, mfd,
                                        successor, sweeps, terrain)
@@ -2123,11 +2127,7 @@ def block_kernels(names, z, m, eps, err, card, times, phase, what):
     zed, fl = ff["zed"].contiguous(), ff["flags"].contiguous()
     big = torch.tensor(sweeps.BIG, device=dev)
     wt0 = torch.where(ff["outlet"], 0.0, big).contiguous()
-    fd_eff = successor.effective_codes(fd)
-    pinned = fd_eff == 0
-    code = successor.pack_codes(fd_eff, pinned)
-    own = torch.arange(h * w, dtype=torch.int32, device=dev).view(h, w)
-    v0 = torch.where(pinned, own, -1).to(torch.int32).contiguous()
+    seeds = fd == 0
     ones = torch.where(fd < 0, 0.0, torch.ones_like(z)).contiguous()
     calls = {
         "fill_sweep": (
@@ -2141,9 +2141,11 @@ def block_kernels(names, z, m, eps, err, card, times, phase, what):
                                      flag),
             lambda: sweeps.dist_sweep_plain(wt0, zed, fl, "towards", 1.0,
                                             False, flag)),
-        "resolve_sweep": (
-            lambda: successor.resolve_sweep(v0, code, False),
-            lambda: successor.resolve_sweep_plain(v0, code, False)),
+        "resolve_jump": (
+            lambda: (successor.successor_jump(fd),
+                     successor.successor_jump(fd, seeds)),
+            lambda: (successor.successor_jump_plain(fd),
+                     successor.successor_jump_plain(fd, seeds))),
         "accum_sweep": (
             lambda: accum.accum_sweep(ones, ones, fd, False),
             lambda: accum.accum_sweep_plain(ones, ones, fd, False)),
@@ -2167,7 +2169,9 @@ def block_kernels(names, z, m, eps, err, card, times, phase, what):
         ms = cuda_ms(kern, reps=5)
         out = {}
         plain_ms = cuda_ms(lambda: out.setdefault("plain", plain()))
-        bitwise(name, ((got, out["plain"]),), err, f"{h}x{w} {what}",
+        pairs = (tuple(zip(got, out["plain"])) if isinstance(got, tuple)
+                 else ((got, out["plain"]),))
+        bitwise(name, pairs, err, f"{h}x{w} {what}",
                 rtol=ATAN_RTOL if name == "terrain" else 0.0)
         bound, bound_by = bound_ms(name, h * w)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -2235,7 +2239,7 @@ def phase_twopass(dev, card, kernels, err):
         timer, stats = debug.PhaseTimer(), {}
         _, fill_launches, fill_s, fill_peak = peak_run(
             "twopass_fill", ("fill_sweep", "d8", "dist_sweep",
-                             "resolve_sweep"),
+                             "resolve_jump"),
             lambda: out_of_core_fill(
                 path("dem.npy"), path("filled.npy"), tile=tile,
                 method="twopass", consumer="device", no_data=ND,
@@ -2514,7 +2518,7 @@ def phase_sharded(dev, card, kernels, err, main_best):
     t0 = time.perf_counter()
     (two, acc2), tp_launches = run_path(
         "sharded_twopass", kernels,
-        ("fill_sweep", "d8", "dist_sweep", "resolve_sweep", "accum_sweep"),
+        ("fill_sweep", "d8", "dist_sweep", "resolve_jump", "accum_sweep"),
         lambda: (sharded_fill_twopass(z, mesh=mesh, stats=st_f),
                  sharded_accumulation_d8_twopass(out["flowdirs"], mesh=mesh,
                                                  stats=st_a)))
@@ -2617,7 +2621,7 @@ def phase_sharded(dev, card, kernels, err, main_best):
     ny, nx = SHARDED_MESH
     for names, e, ring, what in (
             (("fill_sweep", "d8", "terrain"), MAIN, 2, "extended block"),
-            (("accum_sweep", "dist_sweep", "resolve_sweep"), MAIN, 0,
+            (("accum_sweep", "dist_sweep", "resolve_jump"), MAIN, 0,
              "shard"),
             (("mfd_sweep",), edge, 0, "shard")):
         bh, bw = e // ny + ring, e // nx + ring
@@ -2689,7 +2693,8 @@ def main():
          "replaces": REPLACES[name][0],
          "also_replaces": REPLACES[name][1],
          "path": PATH_OF[name],
-         "launches": path_launches[PATH_OF[name]][name],
+         "launches": (path_launches[PATH_OF[name]][name]
+                      if PATH_OF[name] else None),
          "max_abs_err": err[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],

@@ -27,10 +27,10 @@
 // shared-memory reads, its select and one barrier.  No change flag: the
 // caller compares whole rotations (int32 values, so equality is exact).
 //
-// On the card, watershed labels and upslope masks take the pointer jumping
-// of successor_jump.cuh (rd_resolve_jump below), which reaches the same
-// fixpoint without rotations; the sweep stays for the two-pass tile labels
-// (parallel/consumer.py), whose pins and starts are their own.
+// Watershed labels, upslope masks and the two-pass tile labels take the
+// pointer jumping of successor_jump.cuh (rd_resolve_jump below), which
+// reaches the same fixpoint without rotations.  The sweep kernel runs on
+// no path; ROADMAP.md queue 5 lists its retirement.
 
 #include "seam_walk.cuh"
 #include "successor_jump.cuh"

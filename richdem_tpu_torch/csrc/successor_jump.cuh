@@ -7,9 +7,10 @@
 // cycle, or upstream of one, reaches no pinned cell and reads what the
 // sweeps leave there: label -1, not upslope.
 //
-// Replaces no TPU kernel: the TPU engine reaches the same fixpoint by
-// rotations of directional sweeps (the resolve sweep, kept for the CPU's
-// plain path and the two-pass tile labels).  A sweep carries a value only
+// The counterpart of the TPU's _resolve_kernel (pallas_folded.py:606) on
+// every path: the TPU engine reaches the same fixpoint by rotations of
+// directional sweeps (the resolve sweep, whose plain version is the
+// jump's reference in the tests).  A sweep carries a value only
 // where the path runs with it, so every turn of a path costs another
 // rotation (21 rotations of four sweeps a basin step at 10240^2); pointer
 // jumping needs log2 of the path's length in rounds, whatever its turns.

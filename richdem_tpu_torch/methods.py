@@ -2,34 +2,24 @@
 Strahler order.
 
 Counterpart of ``richdem_tpu.methods``.  Watershed labels and upslope
-masks are fixpoints of the successor resolve, Strahler order the fixpoint
-of its own sweep (:mod:`richdem_tpu_torch.ops.successor`).  The set-up is
-the reference's TPU path (``methods.py:80-87``, ``:105-112``): cells that
-point off the grid are terminals, watershed labels start from each
-terminal's own flat index, upslope masks pin the seeds and the terminals.
-
-Which engine a device takes:
-
-* A CUDA tensor reaches the watershed and upslope fixpoints by pointer
-  jumping over tile exits (``ops.successor.successor_jump``,
-  ``csrc/successor_jump.cuh``): no rotation runs, ``return_info`` reports
-  ``(0, "jump")``, and ``max_rotations`` binds nothing.  The fixpoint is
-  unique, so the labels are the sweeps' bit for bit; the sweeps' rotations
-  grow with every turn of a path, the jump's rounds with log₂ of its
-  length.  Strahler order, a maximum over donors and not a copy from the
-  successor, keeps the hand-written sweeps.
-* A CPU tensor runs the plain sweeps (the kernels' plain versions).
+masks are the successor resolve's fixpoint: each cell takes the value of
+the first terminal or seed on its path.  Cells that point off the grid
+are terminals, as in the reference (``richdem_tpu/methods.py:80-87``,
+``:105-112``).
+On every device one engine reaches that fixpoint, pointer jumping over
+tile exits (``ops.successor.successor_jump``): the kernels of
+``csrc/successor_jump.cuh`` on a card, which index at most 2**30 cells
+(a larger card grid raises), and their plain version on the CPU.
+The fixpoint is unique, so the labels are the resolve sweeps' bit for
+bit; the sweeps' rotations grow with every turn of a path, the jump's
+rounds with log₂ of its length.  Strahler order, a maximum over donors
+and not a copy from the successor, keeps the hand-written sweeps
+(:mod:`richdem_tpu_torch.ops.successor`).
 
 The reference's other engines, log-depth pointer doubling over the
 successor table and the Jacobi Strahler fixpoint, are kept as plain
-PyTorch (:func:`watersheds_doubling`, :func:`upslope_doubling`,
-:func:`strahler_jacobi`).  On the CPU, doubling also finishes a watershed
-or upslope call whose sweeps do not reach the fixpoint within
-``max_rotations`` rotations (paths that turn back across rows many times,
-such as a serpentine): it is the reference's own exact engine off the TPU,
-its answer does not depend on where it starts, and it runs on the same
-device.  The call's ``return_info`` says which engine finished, and the
-``provenance`` logger notes it.
+PyTorch cross-checks (:func:`watersheds_doubling`,
+:func:`upslope_doubling`, :func:`strahler_jacobi`).
 """
 
 from __future__ import annotations
@@ -42,12 +32,9 @@ from richdem_tpu_torch import topology
 from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.fill import _require_converged, _rotation_cap
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor
-from richdem_tpu_torch.ops.successor import (effective_codes, jump_fits,
-                                             strahler_fixpoint,
+from richdem_tpu_torch.ops.successor import (strahler_fixpoint,
                                              successor_jump,
-                                             successor_resolve_info,
                                              successor_table)
-from richdem_tpu_torch.provenance import logger
 
 __all__ = ["twi", "spi", "watersheds_from_flowdirs", "upslope_cells",
            "strahler_order", "watersheds_doubling", "upslope_doubling",
@@ -69,87 +56,33 @@ def spi(accum, slope_radians, cellsize=1.0):
     return accum * cellsize * torch.tan(slope_radians)
 
 
-def _finish(what, rotations, done, shape):
-    """Which engine finished a successor call: the sweeps when they reached
-    the fixpoint, else pointer doubling, which is logged."""
-    if done:
-        return "sweeps"
-    logger.info("%s: the resolve sweeps did not converge within %d "
-                "rotations on a %dx%d grid; pointer doubling finished",
-                what, rotations, *shape)
-    return "doubling"
-
-
-def _jumps(fd):
-    """Whether a walk over ``fd`` takes the pointer jumping: on a card,
-    for a grid its kernels index in int32."""
-    return fd.is_cuda and jump_fits(fd.shape)
-
-
-def watersheds_from_flowdirs(flowdirs, max_rotations=64, return_info=False,
-                             device="cuda"):
+def watersheds_from_flowdirs(flowdirs, return_info=False, device="cuda"):
     """Label every cell with the flat index of its terminal cell (int32):
     the drainage-basin partition (reference ``find_watersheds``).  Nodata
     and NO_FLOW cells, and cells pointing off the grid, label themselves.
     Raises ``ValueError`` if the codes hold a cycle (a cell that never
-    reaches a terminal).  A CUDA tensor takes pointer jumping
-    (``successor_jump``).  On the CPU, when ``max_rotations`` rotations of
-    resolve sweeps do not reach the fixpoint, pointer doubling finishes;
-    ``max_rotations`` bounds only those sweeps.  ``return_info`` adds
-    ``(rotations, engine)``: the rotations the sweeps took (0 for the
-    jump) and ``"jump"``, ``"sweeps"`` or ``"doubling"``.  ``flowdirs``: a
-    tensor (the work runs where it lives) or an array (moved to
-    ``device``)."""
+    reaches a terminal), or for a card grid the jump cannot index.  ``return_info`` adds ``(0, "jump")``: the jump
+    (``successor_jump``) runs no rotation.  ``flowdirs``: a tensor (the
+    work runs where it lives) or an array (moved to ``device``)."""
     with span("rd.watersheds"):
-        fd = as_tensor(flowdirs, device)
-        if _jumps(fd):
-            labels, rotations, engine = successor_jump(fd), 0, "jump"
-            cyclic = int((labels < 0).sum())
-        else:
-            fd_eff = effective_codes(fd)
-            pinned = fd_eff == 0
-            own = torch.arange(fd_eff.numel(), dtype=torch.int32,
-                               device=fd_eff.device).view(fd_eff.shape)
-            init = torch.where(pinned, own, -1)
-            labels, rotations, done = successor_resolve_info(
-                fd_eff, init, pinned, max_rotations)
-            engine = _finish("watersheds", rotations, done, fd_eff.shape)
-            if done:
-                cyclic = int((labels < 0).sum())
-            else:
-                # a label that is not a terminal sits on a cycle
-                labels = watersheds_doubling(fd_eff)
-                cyclic = int((~pinned.reshape(-1)[labels.reshape(-1).long()])
-                             .sum())
+        labels = successor_jump(as_tensor(flowdirs, device))
+        cyclic = int((labels < 0).sum())
         if cyclic:
             raise ValueError(f"flow directions hold a cycle: {cyclic} cells "
                              "never reach a terminal")
-        return (labels, rotations, engine) if return_info else labels
+        return (labels, 0, "jump") if return_info else labels
 
 
-def upslope_cells(seed_mask, flowdirs, max_rotations=64, return_info=False,
-                  device="cuda"):
+def upslope_cells(seed_mask, flowdirs, return_info=False, device="cuda"):
     """Cells whose flow path passes through any seed cell, the seeds
-    included (reference ``d8_upslope_cells``); bool.  A CUDA tensor takes
-    pointer jumping (``successor_jump``).  On the CPU, when
-    ``max_rotations`` rotations of resolve sweeps do not reach the
-    fixpoint, pointer doubling finishes; ``max_rotations`` bounds only
-    those sweeps.  ``return_info`` adds ``(rotations, engine)`` as
+    included (reference ``d8_upslope_cells``); bool, by the jump
+    (``successor_jump``).  ``return_info`` adds ``(0, "jump")`` as
     :func:`watersheds_from_flowdirs` does.  Tensors run where ``flowdirs``
     lives; arrays move to ``device``."""
     with span("rd.upslope"):
         fd = as_tensor(flowdirs, device)
-        seeds = as_tensor(seed_mask, fd.device).to(torch.bool)
-        if _jumps(fd):
-            up = successor_jump(fd, seeds)
-            return (up, 0, "jump") if return_info else up
-        fd_eff = effective_codes(fd)
-        out, rotations, done = successor_resolve_info(
-            fd_eff, seeds.to(torch.int32), seeds | (fd_eff == 0),
-            max_rotations)
-        engine = _finish("upslope cells", rotations, done, fd_eff.shape)
-        up = out > 0 if done else upslope_doubling(seeds, fd_eff)
-        return (up, rotations, engine) if return_info else up
+        up = successor_jump(fd, as_tensor(seed_mask, fd.device))
+        return (up, 0, "jump") if return_info else up
 
 
 def strahler_order(flowdirs, max_rotations=None, return_info=False,

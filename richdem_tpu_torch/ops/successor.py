@@ -1,6 +1,7 @@
 """Successor fixpoints over D8 codes: the successor resolve (watershed
-labels, upslope masks), by pointer jumping on a card and by Gauss–Seidel
-sweeps elsewhere, and Strahler order, by sweeps.
+labels, upslope masks, the two-pass tile labels) by pointer jumping, with
+the Gauss–Seidel resolve sweeps kept as its reference, and Strahler order,
+by sweeps.
 
 Counterpart of ``richdem_tpu.ops.pallas_folded`` lines 595-852
 (``successor_resolve_folded``, ``strahler_folded``).  One resolve sweep
@@ -22,17 +23,18 @@ byte (:func:`pack_codes`).
 
 The resolve's fixpoint is unique: each cell takes the value of the first
 pinned cell on its path, whatever the schedule.  :func:`successor_jump`
-reaches it for watershed labels and upslope masks without sweeps: each
-cell's path is followed within its tile to a stop or to the first cell
-outside the tile, then pointers double over the tiles' border cells
-(``csrc/successor_jump.cuh``, entry points of the resolve sweep's library;
-plain version :func:`successor_jump_plain`).  A sweep carries a value only
-where the path runs with it, so a path's every turn costs a rotation; the
-jump costs log₂ of the path's length.  :mod:`~richdem_tpu_torch.methods`
-takes it for a CUDA tensor; a CPU tensor keeps the plain sweeps.  The
-resolve sweep kernel stays for the two-pass tile labels
-(``parallel/consumer.py``), which call :func:`successor_resolve_info` with
-starts of their own.
+reaches it without sweeps: each cell's path is followed within its tile to
+a stop or to the first cell outside the tile, then pointers double over
+the tiles' border cells (``csrc/successor_jump.cuh``, entry points of the
+resolve sweep's library; plain version :func:`successor_jump_plain`).  A
+sweep carries a value only where the path runs with it, so a path's every
+turn costs a rotation; the jump costs log₂ of the path's length.  It is
+the one engine of the watershed labels and upslope masks
+(:mod:`~richdem_tpu_torch.methods`) and of the two-pass tile labels
+(``parallel/consumer.py``), on every device; a card grid past 2**30
+cells or border slots raises, as the multi-flow pass does.  The resolve
+sweeps (:func:`successor_resolve_info`) are what the tests hold the jump
+against; their card kernel runs on no path.
 
 :func:`successor_table` (flat successor indices) serves the plain pointer
 doubling of :mod:`richdem_tpu_torch.methods` and of

@@ -9,8 +9,8 @@ versions) and only O(perimeter) vectors cross to the host.
 1. local fill: ordinary depression fill of the tile alone (tile edges and
    nodata drain), the fill kernel's rotations;
 2. watershed labels: D8 codes of the locally filled surface, flats drained
-   toward their outlets, then the successor resolve (the resolve kernel at
-   every tile size): ``label(c)`` is 1 + the flat index of the drain cell
+   toward their outlets, then the successor jump (the jump's kernels on a
+   card): ``label(c)`` is 1 + the flat index of the drain cell
    that ``c`` reaches.  Drains on a global DEM edge, nodata cells and
    nodata-adjacent drains are pre-marked ocean (label 0);
 3. label-graph edges: for every 8-adjacent pair with different labels,
@@ -43,16 +43,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from richdem_tpu_torch.methods import (watersheds_doubling,
-                                       watersheds_from_flowdirs)
+from richdem_tpu_torch.methods import watersheds_from_flowdirs
 from richdem_tpu_torch.ops.accum import d8_accumulation_info
 from richdem_tpu_torch.ops.fill import (_require_converged,
                                         fill_depressions, fill_sweep)
 from richdem_tpu_torch.ops.flats import resolve_flats
 from richdem_tpu_torch.ops.flowdirs import d8_flowdirs
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor, nodata_like
-from richdem_tpu_torch.ops.successor import (effective_codes,
-                                             successor_resolve_info)
+from richdem_tpu_torch.ops.successor import successor_jump
 from richdem_tpu_torch.ops.sweeps import BIG, fill_fixpoint_core
 from richdem_tpu_torch.topology import DX, DY, NO_FLOW
 
@@ -84,9 +82,9 @@ def ring_index(th, tw):
 def _labels_impl(nd, fd_res, ge_mask):
     """Per-cell labels on the locally filled surface: 0 = ocean, else
     1 + flat index of the drain cell reached.  ``ge_mask`` bool (H, W):
-    cells on a global DEM edge.  The successor resolve sweeps at every
-    tile size; where they do not converge within their cap, pointer
-    doubling finishes (the same labels)."""
+    cells on a global DEM edge.  Each cell reads the premark of the
+    terminal its path reaches (``successor_jump``), -1 on or above a
+    cycle."""
     h, w = fd_res.shape
     noflow = (fd_res == NO_FLOW) & ~nd
     near_nodata = torch.zeros_like(nd)
@@ -96,14 +94,9 @@ def _labels_impl(nd, fd_res, ge_mask):
     self_idx = torch.arange(h * w, dtype=torch.int32,
                             device=nd.device).view(h, w)
     premark = torch.where(ocean_drain, 0, self_idx + 1).to(torch.int32)
-    fd_eff = effective_codes(fd_res)
-    pinned = fd_eff == 0
-    init = torch.where(pinned, premark, -1).to(torch.int32)
-    lab, _, done = successor_resolve_info(fd_eff, init, pinned)
-    if done:
-        return lab
-    term = watersheds_doubling(fd_eff).reshape(-1).long()
-    return premark.reshape(-1)[term].view(h, w)
+    root = successor_jump(fd_res).view(-1).long()
+    lab = premark.view(-1)[root.clamp(min=0)]
+    return torch.where(root >= 0, lab, -1).view(h, w)
 
 
 #: unordered-pair directions (E, SE, S, SW cover every 8-adjacency once)

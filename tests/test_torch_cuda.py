@@ -40,8 +40,10 @@ the sweeps.  The successor jump's kernels equal their plain version
 bitwise (and themselves on a second launch) on random codes with cycles
 and on Perlin codes at the ragged shapes, a row, a column and around tile
 edges, and the resolve sweeps' fixpoint at 1000×1100; the entry points
-take them on a card.  The two-pass programs at 1024² (tile 256) run the
-fill, D8, distance, resolve and accumulation kernels and equal the
+and the two-pass tile labels take them on a card, and a grid they cannot
+index raises there.  The two-pass programs at 1024²
+(tile 256) run the fill, D8, distance, jump and accumulation kernels and
+equal the
 in-core results and the native consumer bitwise, as does the ε Schwarz
 fill the in-core ε-fill from BIG; the min-plus names run the fill kernel
 for a fill-shaped call and equal the CPU's plain code otherwise.  The
@@ -615,6 +617,46 @@ def test_methods_take_the_jump_on_the_card(dev, succ_codes):
         methods.watersheds_from_flowdirs(cyc)
 
 
+def test_tile_labels_take_the_jump_on_the_card(dev):
+    """The two-pass fill's tile labels of a 256² tile with nodata holes,
+    its top and left sides on the global edge: on the card the jump's
+    kernels and no resolve sweep, bitwise the CPU's labels."""
+    from richdem_tpu_torch.parallel.consumer import _labels_impl
+
+    z, mask = _dem((256, 256), dev, seed=5)
+    filled = fill.fill_depressions(torch.where(mask, -9999.0, z),
+                                   no_data=-9999.0)
+    fd = flats.resolve_flats(filled, flowdirs.d8_flowdirs(
+        filled, no_data=-9999.0), no_data=-9999.0)
+    ge = torch.zeros(fd.shape, dtype=torch.bool, device=dev)
+    ge[0, :], ge[:, 0] = True, True
+    sweeps_before = successor.RESOLVE_SWEEP.launches
+    jumps_before = successor.RESOLVE_JUMP.launches
+    lab = _labels_impl(mask, fd, ge)
+    torch.cuda.synchronize()
+    assert successor.RESOLVE_SWEEP.launches == sweeps_before
+    assert successor.RESOLVE_JUMP.launches == jumps_before + 1
+    want = _labels_impl(mask.cpu(), fd.cpu(), ge.cpu())
+    assert torch.equal(lab.cpu(), want)
+    assert (want == 0).any() and (want > 0).any()
+
+
+def test_jump_refuses_a_grid_past_its_kernels(dev, succ_codes, monkeypatch):
+    """A card grid that ``jump_fits`` refuses raises, through the jump
+    and through both entries, and launches nothing."""
+    fd = succ_codes
+    seeds = _resolve_start(fd, "upslope")[1] > 0
+    monkeypatch.setattr(successor, "jump_fits", lambda shape: False)
+    before = successor.RESOLVE_JUMP.launches
+    for call in (lambda: successor.successor_jump(fd),
+                 lambda: successor.successor_jump(fd, seeds),
+                 lambda: methods.watersheds_from_flowdirs(fd),
+                 lambda: methods.upslope_cells(seeds, fd)):
+        with pytest.raises(ValueError, match="2\\*\\*30"):
+            call()
+    assert successor.RESOLVE_JUMP.launches == before
+
+
 #: One CTA (45 columns, a tall thin raster); a ragged last CTA (1100: 3
 #: CTAs of 367, 367 and 366 columns); 16 CTAs, the last ragged (8300);
 #: every thread of every CTA walking several columns (20000 and wider; at
@@ -1126,7 +1168,7 @@ def test_mfd_topo_falls_back_on_a_cycle(dev):
 
 TWOPASS_EDGE, TWOPASS_TILE = 1024, 256
 TWOPASS_KERNELS = (fill.FILL_SWEEP, flowdirs.D8, flats.DIST_SWEEP,
-                   successor.RESOLVE_SWEEP, accum.ACCUM_SWEEP)
+                   successor.RESOLVE_JUMP, accum.ACCUM_SWEEP)
 
 
 @pytest.fixture(scope="module")

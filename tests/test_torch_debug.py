@@ -18,6 +18,7 @@ import torch
 
 from richdem_tpu import debug as jdebug
 from richdem_tpu_torch import debug as tdebug
+from richdem_tpu_torch._build import JUMP_TILE
 from richdem_tpu_torch import synth as tsynth
 
 torch.set_num_threads(1)
@@ -240,41 +241,55 @@ def test_without_a_profiler_a_span_is_one_null_context(monkeypatch,
                                       "rd.terrain", "rd.terrain"])
 
 
-#: The entries of the basin layers and the span each opens; ``_doubling``:
-#: the walk once more with a cap of one rotation, so that pointer doubling
-#: finishes it.
+#: The entries of the basin layers and the span each opens;
+#: ``_serpentine``: the walk once more on a path that turns back across
+#: every row and crosses the jump's tiles, so that its rounds over the
+#: tiles' border slots run too.
 BASIN_ENTRIES = {"flats": "rd.flats", "watersheds": "rd.watersheds",
-                 "watersheds_doubling": "rd.watersheds",
+                 "watersheds_serpentine": "rd.watersheds",
                  "strahler": "rd.strahler", "upslope": "rd.upslope",
-                 "upslope_doubling": "rd.upslope"}
+                 "upslope_serpentine": "rd.upslope"}
+
+
+def _serpentine(n):
+    """Each even row flows E and each odd row W, then S at the row's end;
+    the path's last cell is the one terminal."""
+    fd = torch.empty((n, n), dtype=torch.int8)
+    fd[0::2], fd[1::2] = 5, 1
+    fd[0::2, -1], fd[1::2, 0] = 7, 7
+    fd[-1, -1 if n % 2 else 0] = 0
+    return fd
 
 
 def _basin_entry(entry, filled, codes, mask, fd, seeds):
     import richdem_tpu_torch as rt
     from richdem_tpu_torch.ops.flats import resolve_flats_info
 
-    cap = {"max_rotations": 1} if entry.endswith("_doubling") else {}
     if entry == "flats":
         return resolve_flats_info(filled, codes, mask)
     if entry == "strahler":
         return rt.strahler_order(fd)
     if entry.startswith("watersheds"):
-        return rt.watersheds_from_flowdirs(fd, return_info=True, **cap)
-    return rt.upslope_cells(seeds, fd, return_info=True, **cap)
+        return rt.watersheds_from_flowdirs(fd, return_info=True)
+    return rt.upslope_cells(seeds, fd, return_info=True)
 
 
 @pytest.mark.parametrize("entry", sorted(BASIN_ENTRIES))
 def test_a_basin_span_owns_every_operation_of_its_entry(entry, tmp_path):
-    """Every operator a basin entry runs, pointer doubling included, lies
-    in the one span it opens, so a trace puts all its work on its layer."""
+    """Every operator a basin entry runs, the jump's doubling rounds
+    included, lies in the one span it opens, so a trace puts all its work
+    on its layer."""
     from perfbench import spans
 
     name = BASIN_ENTRIES[entry]
     inputs = _basin_inputs(_dem())
+    if entry.endswith("_serpentine"):
+        fd = _serpentine(2 * JUMP_TILE + 3)
+        inputs = inputs[:3] + (fd, fd == 0)
     events, out = _profiled_events(lambda: _basin_entry(entry, *inputs),
                                    tmp_path)
-    if entry.endswith("_doubling"):
-        assert out[-1] == "doubling"
+    if entry.endswith("_serpentine"):
+        assert out[1:] == (0, "jump") and out[0].unique().numel() == 1
     ops = [e for e in events if e.get("cat") == "cpu_op"]
     held = spans.owners(_rd_spans(events),
                         [((e.get("pid"), e.get("tid")), e["ts"])

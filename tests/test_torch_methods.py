@@ -10,9 +10,10 @@ every fixpoint is unique on an acyclic code raster, so every comparison is
 exact.  One plain resolve sweep and one plain Strahler sweep are also
 held against cell-by-cell sweeps over whole rows: the kernels' tiles trade
 edge values, so no tile width shows in one sweep.  The plain successor
-jump (``successor_jump_plain``, the card's engine for labels and upslope
-masks) is held against the sweeps' fixpoint and the reference at several
-tiles, on cycles too, where it leaves what the sweeps leave.
+jump (``successor_jump_plain``, the entries' engine for labels and
+upslope masks off the card) is held against the sweeps' fixpoint and the
+reference at several tiles, on cycles too, where it leaves what the
+sweeps leave.
 """
 
 import functools
@@ -80,7 +81,7 @@ def test_watersheds_vs_jax_and_reference(case):
     fd = _codes(*case)
     got, rotations, engine = rt.watersheds_from_flowdirs(
         fd, return_info=True, device="cpu")
-    assert got.dtype == torch.int32 and engine == "sweeps" and rotations >= 1
+    assert got.dtype == torch.int32 and (rotations, engine) == (0, "jump")
     want = np.asarray(jm.watersheds_from_flowdirs(jnp.asarray(fd)))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), terminal_labels(fd))
@@ -254,28 +255,26 @@ def test_plain_sweeps_cross_seams():
 
 
 def test_cycle_and_unconverged_raise():
-    """A cycle raises; a watershed or upslope call whose sweeps stop at the
-    cap is finished by pointer doubling (and equals it); Strahler order
-    still raises at its cap."""
+    """A cycle raises, through the port's function and
+    ``api.WatershedLabels``; the jump reports no rotation and equals
+    pointer doubling; Strahler order still raises at its cap."""
     fd = np.zeros((6, 7), np.int8)
     fd[2, 2], fd[2, 3] = 5, 1   # E then W: a 2-cycle
     fd[3, 3] = 3                # drains into it
     with pytest.raises(ValueError, match="cycle: 3 cells"):
         rt.watersheds_from_flowdirs(fd, device="cpu")
     with pytest.raises(ValueError, match="cycle: 3 cells"):
-        rt.watersheds_from_flowdirs(fd, max_rotations=0, device="cpu")
+        rt.WatershedLabels(rt.rdarray(torch.from_numpy(fd)),
+                           from_flowdirs=True)
     deep = _codes((64, 80), 8, False)
-    _, rotations, _ = rt.watersheds_from_flowdirs(deep, return_info=True,
-                                                  device="cpu")
-    assert rotations > 2
     labels, rotations, engine = rt.watersheds_from_flowdirs(
-        deep, max_rotations=1, return_info=True, device="cpu")
-    assert (rotations, engine) == (1, "doubling")
+        deep, return_info=True, device="cpu")
+    assert (rotations, engine) == (0, "jump")
     np.testing.assert_array_equal(
         labels.numpy(), tm.watersheds_doubling(deep, "cpu").numpy())
     up, rotations, engine = rt.upslope_cells(
-        _seeds(deep), deep, max_rotations=1, return_info=True, device="cpu")
-    assert (rotations, engine) == (1, "doubling")
+        _seeds(deep), deep, return_info=True, device="cpu")
+    assert (rotations, engine) == (0, "jump")
     np.testing.assert_array_equal(
         up.numpy(), tm.upslope_doubling(_seeds(deep), deep, "cpu").numpy())
     with pytest.raises(RuntimeError, match="did not converge"):
@@ -295,18 +294,17 @@ def _serpentine(n):
 
 
 @pytest.mark.parametrize("n", [128, 192])
-def test_serpentine_watersheds_finish_by_doubling(n, caplog):
-    """Past the 64-rotation cap, doubling finishes the labels: bitwise the
-    reference's (its doubling on the CPU), through the port's function and
-    ``api.WatershedLabels``, with the engine reported and logged."""
+def test_serpentine_watersheds_by_the_jump(n):
+    """A path that turns back across every row, past what 64 rotations of
+    sweeps reach: the jump's labels are bitwise the reference's (its
+    doubling on the CPU), through the port's function and
+    ``api.WatershedLabels``, with no rotation reported."""
     fd = _serpentine(n)
     want = np.asarray(jm.watersheds_from_flowdirs(jnp.asarray(fd)))
     assert np.unique(want).size == 1
-    with caplog.at_level("INFO", logger="richdem_tpu"):
-        got, rotations, engine = rt.watersheds_from_flowdirs(
-            fd, return_info=True, device="cpu")
-    assert (rotations, engine) == (64, "doubling")
-    assert "pointer doubling finished" in caplog.text
+    got, rotations, engine = rt.watersheds_from_flowdirs(
+        fd, return_info=True, device="cpu")
+    assert (rotations, engine) == (0, "jump")
     np.testing.assert_array_equal(got.numpy(), want)
     api = rt.WatershedLabels(rt.rdarray(torch.from_numpy(fd)),
                              from_flowdirs=True)
@@ -314,9 +312,10 @@ def test_serpentine_watersheds_finish_by_doubling(n, caplog):
 
 
 @pytest.mark.parametrize("n", [128, 192])
-def test_serpentine_upslope_finishes_by_doubling(n):
-    """The cells upslope of a seed in the last row: bitwise the reference's
-    through the port's function and ``api.UpslopeCells``."""
+def test_serpentine_upslope_by_the_jump(n):
+    """The cells upslope of a seed in the last row, by the jump: bitwise
+    the reference's through the port's function and ``api.UpslopeCells``,
+    with no rotation reported."""
     fd = _serpentine(n)
     seeds = np.zeros(fd.shape, bool)
     seeds[-1, n // 2] = True
@@ -324,7 +323,7 @@ def test_serpentine_upslope_finishes_by_doubling(n):
     assert 0 < want.sum() < want.size
     got, rotations, engine = rt.upslope_cells(seeds, fd, return_info=True,
                                               device="cpu")
-    assert (rotations, engine) == (64, "doubling")
+    assert (rotations, engine) == (0, "jump")
     np.testing.assert_array_equal(got.numpy(), want)
     api = rt.UpslopeCells(seeds, rt.rdarray(torch.from_numpy(fd)))
     np.testing.assert_array_equal(api.np(), want)
@@ -406,13 +405,17 @@ JUMP_CASES = {
 @functools.lru_cache(maxsize=None)
 def _jump_case(name):
     """The case's codes, seeds, and the references' labels and mask (the
-    JAX package's, each bitwise the CPU entry points': the resolve sweeps'
-    fixpoint, finished by doubling past the cap on the serpentine)."""
+    JAX package's, each bitwise the CPU entry points' and, but on the
+    serpentine, whose sweeps take a rotation for every two rows, the
+    resolve sweeps' fixpoint)."""
     fd = JUMP_CASES[name]()
     seeds = _seeds(fd, 2)
     seeds[-1, fd.shape[1] // 2] = True
     labels = np.asarray(jm.watersheds_from_flowdirs(jnp.asarray(fd)))
     up = np.asarray(jm.upslope_cells(jnp.asarray(seeds), jnp.asarray(fd)))
+    if not name.startswith("serpentine"):
+        np.testing.assert_array_equal(_swept(fd).numpy(), labels)
+        np.testing.assert_array_equal(_swept(fd, seeds).numpy(), up)
     np.testing.assert_array_equal(
         rt.watersheds_from_flowdirs(fd, device="cpu").numpy(), labels)
     np.testing.assert_array_equal(
@@ -427,7 +430,7 @@ def test_successor_jump_plain_vs_sweeps_and_jax(name, tile):
     the resolve sweeps' fixpoint and the JAX reference: Perlin codes with
     nodata holes, codes off the grid, NO_FLOW and nodata inside the paths,
     paths along tile edges, and the serpentine, on which the sweeps stop at
-    their cap and doubling finishes."""
+    their cap of 64 rotations."""
     fd, seeds, labels, up = _jump_case(name)
     t = torch.from_numpy(fd)
     got = S.successor_jump_plain(t, tile=tile)

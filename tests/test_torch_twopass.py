@@ -123,9 +123,9 @@ def test_fill_consumer_labels_are_ring_or_ocean(dem):
     assert labs.size > 0 and ring[labs - 1].all()
 
 
-def test_labels_doubling_finishes_past_the_resolve_cap():
-    """A serpentine tile: the resolve sweeps stop at their cap, pointer
-    doubling finishes, and the labels are the doubling labels."""
+def test_labels_of_a_serpentine_tile():
+    """A serpentine tile, whose resolve sweeps stop at their cap: the
+    labels are the doubling labels."""
     from richdem_tpu_torch.methods import watersheds_doubling
     from richdem_tpu_torch.parallel.consumer import _labels_impl
 
@@ -142,6 +142,65 @@ def test_labels_doubling_finishes_past_the_resolve_cap():
     term = watersheds_doubling(fd_t).reshape(-1).long()
     np.testing.assert_array_equal(lab.reshape(-1).numpy(),
                                   term.numpy() + 1)
+
+
+def _four_cycle_codes(shape):
+    """A four-cell cycle (E, S, W, N) near the middle of a NO_FLOW field
+    with a nodata cell, a cell draining into the cycle, and a cell
+    draining off each side; on a row or a column, codes along it to a
+    NO_FLOW cell every five and a nodata cell at the end."""
+    h, w = shape
+    fd = np.zeros(shape, np.int8)
+    if h < 2 or w < 2:
+        fd.reshape(-1)[:] = 5 if h == 1 else 7
+        fd.reshape(-1)[::5] = 0
+        fd.reshape(-1)[-1] = -1
+        return fd
+    r, c = h // 2, w // 2
+    fd[r, c], fd[r, c + 1], fd[r + 1, c + 1], fd[r + 1, c] = 5, 7, 1, 3
+    fd[r - 1, c] = 7
+    fd[0, :], fd[:, 0], fd[-1, -1] = 3, 1, -1
+    return fd
+
+
+def _random_codes(shape):
+    return np.random.default_rng(shape[0] * 100 + shape[1]).integers(
+        -1, 9, shape).astype(np.int8)
+
+
+@pytest.mark.parametrize("shape", [(1, 70), (70, 1), (33, 47)])
+@pytest.mark.parametrize("make", [_random_codes, _four_cycle_codes],
+                         ids=["random", "four-cycle"])
+def test_labels_are_the_resolve_sweeps_fixpoint(make, shape):
+    """Codes in -1..8 (cycles among them) and a four-cell cycle, with
+    nodata cells and cells on a global edge: the labels are bitwise the
+    resolve sweeps' fixpoint from the premarks, -1 on and above a
+    cycle."""
+    from richdem_tpu_torch.ops.stencil import neighbor
+    from richdem_tpu_torch.ops.successor import (effective_codes,
+                                                 successor_resolve_info)
+    from richdem_tpu_torch.parallel.consumer import _labels_impl
+
+    fd = torch.from_numpy(make(shape))
+    nd = fd < 0
+    ge = torch.zeros(shape, dtype=torch.bool)
+    ge[0, :shape[1] if shape[0] > 1 else 1] = True
+    lab = _labels_impl(nd, fd, ge)
+    near_nodata = torch.zeros_like(nd)
+    for d in range(1, 9):
+        near_nodata |= neighbor(nd, d, False)
+    ocean = nd | ((fd == 0) & ~nd & (ge | near_nodata))
+    own = torch.arange(fd.numel(), dtype=torch.int32).view(shape)
+    premark = torch.where(ocean, 0, own + 1).to(torch.int32)
+    fd_eff = effective_codes(fd)
+    pinned = fd_eff == 0
+    want, _, done = successor_resolve_info(
+        fd_eff, torch.where(pinned, premark, -1), pinned, 256)
+    assert done and lab.dtype == torch.int32
+    assert torch.equal(lab, want)
+    if make is _four_cycle_codes and min(shape) > 1:
+        assert int((lab < 0).sum()) == 5
+    assert (lab == 0).any() and (lab > 0).any()
 
 
 # -- the drivers over in-memory tilings -----------------------------------

@@ -4,10 +4,10 @@ generator's peak memory, on one CUDA card.
 
 Run from the repository root on a machine with a card:
 
-    python3 tools/twopass_measure.py [transfers] [synth_peak]
+    python3 tools/twopass_measure.py [transfers] [synth_peak] [fill]
 
-(both when none is named).  Each measurement prints one JSON line with the
-card's ``name, power.limit`` from nvidia-smi.
+(all three when none is named).  Each measurement prints one JSON line
+with the card's ``name, power.limit`` from nvidia-smi.
 
 * ``transfers`` — one 2048² float32 tile of a disk-resident 10240² Perlin
   DEM (seed 0; a ``.npy`` memmap in a temporary directory), filled on the
@@ -21,6 +21,13 @@ card's ``name, power.limit`` from nvidia-smi.
   after one warm-up, host wall clock.
 * ``synth_peak`` — the card's peak allocation of ``synth.perlin_dem`` at
   10240² and 16384², against the field's own bytes.
+* ``fill`` — ``out_of_core_fill`` of a 10240² Perlin DEM (seed 0) with
+  nodata holes on disk, two-pass, tile 2048, device consumer, tiles not
+  cached, bitwise the in-core fill: host seconds of one warm-up and of
+  REPS runs, the last run's phases (``debug.PhaseTimer``) and launches of
+  the resolve sweep and of the successor jump; and the drain labels of
+  the first tile (``consumer._labels_impl``), CUDA-event milliseconds a
+  call, the mean of REPS after one warm-up.
 """
 
 from __future__ import annotations
@@ -137,15 +144,76 @@ def synth_peak(card):
               flush=True)
 
 
+def twopass_fill(card):
+    import torch
+    from richdem_tpu_torch import debug, synth
+    from richdem_tpu_torch.ops import fill, flats, flowdirs, successor
+    from richdem_tpu_torch.parallel import consumer
+    from richdem_tpu_torch.parallel.outofcore import out_of_core_fill
+
+    dev = torch.device("cuda", 0)
+    nd = -9999.0
+    kernels = {"resolve_sweep": successor.RESOLVE_SWEEP,
+               "resolve_jump": successor.RESOLVE_JUMP}
+    with tempfile.TemporaryDirectory() as tmp:
+        z = synth.with_nodata_holes(
+            synth.perlin_dem(EDGE, EDGE, seed=0, device=dev), no_data=nd)
+        p = os.path.join(tmp, "dem.npy")
+        np.save(p, z.cpu().numpy())
+        want = fill.fill_depressions(z, no_data=nd).cpu().numpy()
+        del z
+        secs = []
+        for _ in range(REPS + 1):
+            timer, stats = debug.PhaseTimer(), {}
+            before = {k: kern.launches for k, kern in kernels.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = out_of_core_fill(p, os.path.join(tmp, "filled.npy"),
+                                   tile=TILE, method="twopass",
+                                   consumer="device", no_data=nd,
+                                   stats=stats, cache_tiles=False,
+                                   device=dev, timer=timer)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = {k: kern.launches - before[k]
+                        for k, kern in kernels.items()}
+            if not np.array_equal(np.load(out), want):
+                raise AssertionError("the two-pass fill differs from the "
+                                     "in-core fill")
+        tile = torch.from_numpy(np.array(np.load(p, mmap_mode="r")
+                                         [:TILE, :TILE])).to(dev)
+    mask = tile == nd
+    w_loc = fill.fill_depressions(tile, no_data=nd)
+    fd = flats.resolve_flats(w_loc, flowdirs.d8_flowdirs(w_loc, no_data=nd),
+                             no_data=nd)
+    ge = torch.zeros_like(mask)
+    ge[0, :], ge[:, 0] = True, True
+    consumer._labels_impl(mask, fd, ge)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        consumer._labels_impl(mask, fd, ge)
+    end.record()
+    torch.cuda.synchronize()
+    print(json.dumps({"measure": "fill", "edge": EDGE, "tile": TILE,
+                      "warmup_s": secs[0], "fill_s": secs[1:],
+                      "phases_s": dict(timer.times), "launches": launches,
+                      "data_passes": stats["data_passes"],
+                      "labels_ms": start.elapsed_time(end) / REPS,
+                      "card": card}), flush=True)
+
+
 def main(argv):
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     card = card_line()
-    todo = argv or ["transfers", "synth_peak"]
+    todo = argv or ["transfers", "synth_peak", "fill"]
     for name in todo:
-        {"transfers": transfers, "synth_peak": synth_peak}[name](card)
+        {"transfers": transfers, "synth_peak": synth_peak,
+         "fill": twopass_fill}[name](card)
 
 
 if __name__ == "__main__":
