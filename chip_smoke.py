@@ -10,9 +10,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 
 1. device — the card's ``name, power.limit`` from nvidia-smi;
 2. build — compiles the eleven kernel sources from
-   ``richdem_tpu_torch/csrc`` (thirteen kernels: the multi-flow sweep's
-   library also holds the topological pass, the resolve sweep's the
-   successor jump) and the port's native engine,
+   ``richdem_tpu_torch/csrc`` (fourteen kernels: the multi-flow and D8
+   accumulation sweeps' libraries also hold their topological passes, the
+   resolve sweep's the successor jump) and the port's native engine,
    all at once (or loads them when the libraries
    are newer than the sources), and reads each kernel's registers and
    spills from ``ptxas``'s report and the launch shapes of the scan
@@ -23,7 +23,10 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    multi-flow sweeps at depths 1, 8 and 0, down and transposed up (at 1
    and 8 against the plain sweep over whole rows: the kernels' tile seams
    are exact), the multi-flow topological pass with unit and float
-   weights (bitwise, and the same bits on a second call), Rho8
+   weights (bitwise, and the same bits on a second call), the D8
+   accumulation sweeps' fixpoint and the topological pass over the same
+   codes (bitwise its plain version twice, and the fixpoint at unit
+   weights), Rho8
    and Rho4 codes for three seeds, the resolve and Strahler sweeps down and
    transposed up and their fixpoints, the successor jump's labels and
    upslope masks (bitwise its plain version, the same bits on a second
@@ -38,7 +41,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
 4. native gates — fill bit-exact against the port's copy of the
    single-core C++ engine at 2048×2176 and 4096×4224 (multigrid warm
    start), with both fill engines, then D8 and flat resolution of those
-   ε = 0 fills bitwise against the engine's; accumulation exact at 2048×2176, D8 codes within 1e-5 of
+   ε = 0 fills bitwise against the engine's, and the accumulation of
+   their codes before and after flat resolution (the topological pass)
+   exact below 2²⁴; accumulation exact at 2048×2176, D8 codes within 1e-5 of
    the cells (float32 slope ties); at 2048×2176 on ε = 1e-2 fills, D∞ and
    Quinn accumulation within rtol 2e-5 of the engine's topological queue
    over the same proportions, and D8 codes through the two-tap scan
@@ -51,7 +56,8 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    three timed steps and the peak device memory;
 6. flats at full size — ``resolve_flats`` of the main path's ε = 0 output
    (real flat lakes): converged, no interior NO_FLOW left, and the resolved
-   codes' accumulation conserves mass exactly;
+   codes' accumulation conserves mass exactly, the topological pass over
+   them bitwise its plain version;
 7. config 2 (``BASELINE.json``; ``bench.py``'s ``fill_flats``) at 10240²:
    ``auto_epsilon`` → ε-fill → D8 → ``resolve_flats``; converged, its
    kernels launched, the ε-fill (from the multigrid start) bitwise the
@@ -90,7 +96,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    accumulation, distance, D∞, multi-flow, resolve and Strahler sweeps also
    transposed; the scan sweep down on the api DEM at its ε; the multi-flow
    topological pass on config 4's Quinn planes, also bitwise the path's
-   own accumulation; the successor jump's labels and upslope mask on the
+   own accumulation; the D8 topological pass on the main path's codes,
+   also bitwise its own accumulation; the successor jump's labels and
+   upslope mask on the
    d8_methods path's codes and gauges, also bitwise the path's own), then
    one call of each timed beside its bound (the jump's call: one of
    each walk), with each sweep's time per row step and
@@ -102,9 +110,9 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    engine, a reference point);
 14. twopass — the [P1]/[P2] out-of-core programs on ``.npy`` rasters in a
    temporary directory: first the path's five kernels (fill, D8, distance
-   and accumulation sweeps, the successor jump) on one 2048² tile, each
-   bitwise its
-   plain version and timed beside its bound at that shape; then
+   sweep, the successor jump, the D8 topological pass) on one 2048² tile,
+   each bitwise its plain version and timed beside its bound at that
+   shape; then
    ``out_of_core_fill`` of the api path's DEM (10240² Perlin seed 0 with
    nodata holes; tile 2048, device consumer, tiles not cached) in exactly
    two data passes, bitwise the in-core fill, its wall time split by
@@ -132,12 +140,13 @@ Phases, one line each (any failure raises: non-zero exit, no final line):
    at 2048², bitwise the in-process mesh; then the seven kernels of these
    paths against their plain versions and timed beside their bounds at the
    shape their path gives them (an extended block for the fill, D8 and
-   terrain, a shard for the accumulation, distance and multi-flow sweeps
-   and the successor jump).
+   terrain, a shard for the D8 topological pass, the distance and
+   multi-flow sweeps and the successor jump).
 
 Each path's launch counts are set to 0 just before it runs and read just
-after (the topological pass, ``mfd.MFD_TOPO``, an entry point of the
-multi-flow sweep's library, has a record of its own, ``mfd_topo``, and so
+after (the topological passes, ``mfd.MFD_TOPO`` and ``accum.ACCUM_TOPO``,
+entry points of the multi-flow and D8 accumulation sweeps' libraries,
+have records of their own, ``mfd_topo`` and ``accum_topo``, and so
 has the successor jump, ``successor.RESOLVE_JUMP``, in the resolve
 sweep's: ``resolve_jump``); the two-pass programs are two paths
 (``twopass_fill``, ``twopass_accum``), whose launches and tile-width times
@@ -199,7 +208,7 @@ SHARDED_NCCL_EDGE = 2048
 #: drain labels and of the accumulation's links, and the [P2] local
 #: solves
 TWOPASS_KERNELS = ("fill_sweep", "d8", "dist_sweep", "resolve_jump",
-                   "accum_sweep")
+                   "accum_topo")
 #: two-pass accumulation against the in-core one, on cells whose in-core
 #: value reaches 2²⁴: float32 sums of more unit weights than that round,
 #: and the tiled replay adds an entry cell's inflow to its weight where
@@ -233,6 +242,8 @@ ISSUE_PER_CLOCK = {"fp32": 128, "int32": 64, "xu": 16}
 #:   fill_sweep  W, Z in, W out (4+4+4); 3 adds, 3 min, 1 max
 #:   d8          z, mask in, code out (4+1+1); 8 × (sub, div, compare)
 #:   accum_sweep acc, w, code in, acc out (4+4+1+4); up to 9 adds
+#:   accum_topo  w, code in, acc out (4+1+4); one add a donor, one a cell
+#:               (its counters and level list are its own scratch)
 #:   dist_sweep  w, z, flags in, w out (4+4+1+4); 3 × (compare, add, min)
 #:   terrain     z, mask in, out (4+1+4); about 40 with the atan
 #:   dinf_sweep  acc, w, packed field in, acc out (4+4+4+4); decode 4,
@@ -272,6 +283,7 @@ ISSUE_PER_CLOCK = {"fp32": 128, "int32": 64, "xu": 16}
 #: Bytes bound all but rho8 on an H100 (under either count of their
 #: operations); its int32 operations bound rho8.
 COST = {"fill_sweep": (12, 7), "d8": (6, 24), "accum_sweep": (13, 9),
+        "accum_topo": (9, 1),
         "dist_sweep": (13, 9), "terrain": (9, 40), "dinf_sweep": (16, 36),
         "mfd_sweep": (44, 40), "mfd_topo": (40, 16),
         "rho8": (6, {"int32": 40, "xu": 1, "fp32": 41}),
@@ -318,6 +330,7 @@ REPLACES = {
                   ["richdem_tpu/ops/pallas_mfd.py:49",
                    "richdem_tpu/ops/pallas_mfd.py:290"]),
     "mfd_topo": ("no TPU kernel", None),
+    "accum_topo": ("no TPU kernel", None),
     "rho8": ("richdem_tpu/ops/pallas_stencils.py:119", None),
     "resolve_sweep": ("richdem_tpu/ops/pallas_folded.py:606", None),
     "resolve_jump": ("richdem_tpu/ops/pallas_folded.py:606", None),
@@ -329,9 +342,11 @@ REPLACES = {
 #: topological pass; the successor jump's the d8_methods path (the basin
 #: step of the benchmark's d8_basins cell).  The resolve sweep runs on no
 #: path, as watershed labels, upslope masks and the two-pass tile labels
-#: take the jump: its record keeps its gates against its plain version and
-#: its time, and no launches.
-PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": "main",
+#: take the jump, nor does the D8 accumulation sweep, as every card path
+#: takes the topological pass over the codes: their records keep their
+#: gates against their plain versions and their times, and no launches.
+PATH_OF = {"fill_sweep": "main", "d8": "main", "accum_sweep": None,
+           "accum_topo": "main",
            "dist_sweep": "config2", "terrain": "terrain",
            "dinf_sweep": "dinf_twi", "mfd_sweep": "sharded_mfd",
            "mfd_topo": "quinn_mfd", "resolve_jump": "d8_methods",
@@ -350,13 +365,15 @@ REDESIGNED = {"fill_sweep": 6, "accum_sweep": 6, "d8": 7, "mfd_sweep": 7,
               "dist_sweep": 9, "strahler_sweep": 9, "terrain": 10,
               "rho8": 10}
 #: The record of a second entry point of a source, by its C symbol: the
-#: topological pass is built in the multi-flow sweep's library, the
-#: successor jump in the resolve sweep's.
-ENTRY_RECORDS = {"rd_mfd_topo": "mfd_topo", "rd_resolve_jump": "resolve_jump"}
+#: topological passes are built in the multi-flow and D8 accumulation
+#: sweeps' libraries, the successor jump in the resolve sweep's.
+ENTRY_RECORDS = {"rd_mfd_topo": "mfd_topo", "rd_accum_topo": "accum_topo",
+                 "rd_resolve_jump": "resolve_jump"}
 #: Their entry functions, which share their library's ptxas report, by a
 #: part of their mangled names: those in namespace rd::topo, and those
 #: templated on the jump's tag.
-ENTRY_MANGLED = {"mfd_topo": "2rd4topo", "resolve_jump": "ResolveSweepJump"}
+ENTRY_MANGLED = {"mfd_topo": "2rd4topo", "accum_topo": "2rd4topo",
+                 "resolve_jump": "ResolveSweepJump"}
 
 
 def kname(kernel):
@@ -640,6 +657,21 @@ def topo_pair(planes, w, err, what):
         raise AssertionError(f"mfd_topo ({what}): {left} cells left by the "
                              f"kernel, {left_p} by the plain version")
     bitwise("mfd_topo", ((got, ref), (again, got)), err, what)
+    return got
+
+
+def d8_topo_pair(fd, w, err, what):
+    """The topological pass over D8 codes and its plain version over the
+    same codes and weights: every cell solved, bitwise, and the kernel's
+    second call the same bits; returns the kernel's result."""
+    from richdem_tpu_torch.ops import accum
+
+    (got, left), (again, _) = accum.d8_topo(fd, w), accum.d8_topo(fd, w)
+    ref, left_p = accum.d8_topo_plain(fd, w)
+    if left or left_p:
+        raise AssertionError(f"accum_topo ({what}): {left} cells left by "
+                             f"the kernel, {left_p} by the plain version")
+    bitwise("accum_topo", ((got, ref), (again, got)), err, what)
     return got
 
 
@@ -927,8 +959,8 @@ def phase_kernel_vs_plain(dev, err):
                           .astype(np.float32)).to(dev)
     for name, wt in (("unit", torch.ones_like(z)), ("float", wf)):
         wt = torch.where(mask, 0.0, wt)
-        got, rk, dk = accum.d8_accumulation_info(fd, wt, 64)
-        ref, rp, dp = accum.d8_accumulation_info(
+        got, rk, dk = accum.d8_accumulation_sweeps(fd, wt, 64)
+        ref, rp, dp = accum.d8_accumulation_sweeps(
             fd, wt, 64, sweep=accum.accum_sweep_plain)
         if not (dk and dp):
             raise AssertionError(f"accumulation ({name}) not converged")
@@ -940,9 +972,15 @@ def phase_kernel_vs_plain(dev, err):
             raise AssertionError(f"accumulation ({name} weights) differs: "
                                  f"{max_abs(got, ref)}")
         err["accum_sweep"] = max(err["accum_sweep"], max_abs(got, ref))
+        topo = d8_topo_pair(fd, wt, err, f"{shape}, {name} weights")
+        if name == "unit" and not torch.equal(topo, ref):
+            raise AssertionError("the D8 pass differs from the sweeps' "
+                                 "fixpoint at unit weights")
         log("kernel-vs-plain", f"accumulation, {name} weights: "
             f"{'bitwise' if name == 'unit' else 'allclose rtol 1e-6'} "
-            f"(max |diff| {max_abs(got, ref)}, {rk}/{rp} rotations)")
+            f"(max |diff| {max_abs(got, ref)}, {rk}/{rp} rotations); the "
+            f"topological pass over the codes bitwise its plain version"
+            f"{' and the fixpoint' if name == 'unit' else ''}")
 
     # distance sweeps on the flats of this DEM's ε = 0 fill
     filled0, _, _ = fill.fill_depressions_info(z, mask, eps=0.0)
@@ -1080,6 +1118,12 @@ def phase_native(dev):
         if bad:
             raise AssertionError(f"resolve_flats {h}x{w}: {bad} codes "
                                  "differ from native")
+        for codes, what in ((fd, "eps=0 codes"), (resolved, "resolved")):
+            mass, rel, above, _ = held_to_native(
+                codes, accum.d8_accumulation(codes), f"{h}x{w} {what}")
+            log("native", f"accumulation of the {h}x{w} {what} (the "
+                f"topological pass): mass {mass:.0f}, exact vs native "
+                f"below 2**24, within {rel:.3e} above ({above} cells)")
 
     h, w = NATIVE_GATES[0][0]
     z = tsynth.perlin_dem(h, w, seed=22, device=dev)
@@ -1227,7 +1271,7 @@ def phase_main(dev, card, kernels):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     out, launches = run_path("main", kernels,
-                             ("fill_sweep", "d8", "accum_sweep"),
+                             ("fill_sweep", "d8", "accum_topo"),
                              lambda: step(z))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check_converged(out)
@@ -1280,10 +1324,11 @@ def held_to_native(codes, acc, what):
     return mass, rel, int((~small).sum()), float(want.max())
 
 
-def phase_flats_full(out):
+def phase_flats_full(out, err):
     """Flat resolution of the main path's ε = 0 output, whose filled lakes
     are real flats: held bitwise against the native engine at full size,
-    and the resolved codes' accumulation against native's (float64)."""
+    and the resolved codes' accumulation against native's (float64) and,
+    through the topological pass, bitwise its plain version."""
     import torch
     from richdem_tpu_torch import native, resolve_flats
     from richdem_tpu_torch.ops import accum
@@ -1309,6 +1354,8 @@ def phase_flats_full(out):
     mass, rel, above, largest = held_to_native(
         resolved, accum.d8_accumulation(resolved, max_rotations=256),
         "resolved codes")
+    d8_topo_pair(resolved, torch.ones_like(filled), err,
+                 f"{MAIN}x{MAIN} resolved codes")
     log("flats", f"resolve_flats on the {MAIN}x{MAIN} eps=0 main-path "
         f"output: {before} interior NO_FLOW cells before, 0 after; codes "
         f"bitwise equal to native; {rotations} rotations over the three "
@@ -1317,7 +1364,8 @@ def phase_flats_full(out):
         f"({mass:.0f} of {n}); the port's float32 accumulation equals it in "
         f"every cell "
         f"below 2**24 and is within {rel:.3e} relative above "
-        f"({above} cells, largest {largest:.0f})")
+        f"({above} cells, largest {largest:.0f}); the topological pass "
+        f"over the resolved codes bitwise its plain version")
 
 
 def config2_step(z, eps):
@@ -1614,6 +1662,13 @@ def phase_timing(dev, card, out, z, err, times):
             ((ak, ap), (accum.accum_sweep(at, ones, fd_t, True),
                         accum.accum_sweep_plain(at, ones, fd_t, True))),
             err, f"{MAIN}x{MAIN}, down and transposed up")
+    # the topological pass over the same codes: the main path's own
+    # accumulation, bitwise its plain version
+    topo_calls = (lambda: accum.d8_topo(fd, ones)[0],
+                  lambda: accum.d8_topo_plain(fd, ones)[0])
+    bitwise("accum_topo", ((d8_topo_pair(fd, ones, err, f"{MAIN}x{MAIN}"),
+                            out["accum"]),), err,
+            f"{MAIN}x{MAIN}, the main path's accumulation")
 
     # distance sweeps on the main path's flat lakes, in the three modes
     # of flat resolution
@@ -1635,7 +1690,8 @@ def phase_timing(dev, card, out, z, err, times):
         lambda: terrain.terrain_plain(z, mask, 1.0, 1.0, "slope_radians"))
     log("timing", f"every kernel against its plain version at {MAIN}x{MAIN}"
         f" (fill: a rotation, also at {zc.shape[0]}x{zc.shape[1]}; "
-        f"accumulation: down and transposed up; distance: towards, away "
+        f"accumulation: down and transposed up, and the topological pass; "
+        f"distance: towards, away "
         f"and maxd, down and transposed up, against the plain sweep over "
         f"whole rows, cells lowered {moved}; "
         f"terrain: 8 attributes): bitwise, {'/'.join(ATAN)} within rtol "
@@ -1644,6 +1700,7 @@ def phase_timing(dev, card, out, z, err, times):
     for name, (kern, plain) in (("fill_sweep", fill_calls),
                                 ("d8", d8_calls),
                                 ("accum_sweep", accum_calls),
+                                ("accum_topo", topo_calls),
                                 ("dist_sweep", dist_calls),
                                 ("terrain", terrain_calls)):
         time_kernel(name, kern, plain, card, times, f"{MAIN}x{MAIN}")
@@ -1790,7 +1847,7 @@ def phase_d8_methods(dev, card, kernels, z):
     torch.cuda.reset_peak_memory_stats(dev)
     out, launches = run_path(
         "d8_methods", kernels,
-        ("fill_sweep", "d8", "dist_sweep", "accum_sweep", "resolve_jump",
+        ("fill_sweep", "d8", "dist_sweep", "accum_topo", "resolve_jump",
          "strahler_sweep"), lambda: d8_methods_step(z, eps))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     fd, labels = out["resolved"], out["labels"]
@@ -1848,7 +1905,7 @@ def phase_rho8(dev, card, kernels, z):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     out, launches = run_path("rho8", kernels,
-                             ("fill_sweep", "rho8", "accum_sweep"),
+                             ("fill_sweep", "rho8", "accum_topo"),
                              lambda: rho8_step(z, eps))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     codes = out["codes"]
@@ -2000,7 +2057,7 @@ def phase_api(dev, card, kernels):
         torch.cuda.reset_peak_memory_stats(dev)
         out, launches = run_path(
             "api", kernels,
-            ("fill_scan", "fill_sweep", "d8", "accum_sweep", "terrain"),
+            ("fill_scan", "fill_sweep", "d8", "accum_topo", "terrain"),
             lambda: api_step(rd))
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         filled, acc = out["filled"].tensor(), out["accum"].tensor()
@@ -2149,6 +2206,8 @@ def block_kernels(names, z, m, eps, err, card, times, phase, what):
         "accum_sweep": (
             lambda: accum.accum_sweep(ones, ones, fd, False),
             lambda: accum.accum_sweep_plain(ones, ones, fd, False)),
+        "accum_topo": (lambda: accum.d8_topo(fd, ones)[0],
+                       lambda: accum.d8_topo_plain(fd, ones)[0]),
         "terrain": (
             lambda: terrain.terrain_fused(filled, m, 1.0, 1.0,
                                           "slope_radians"),
@@ -2258,7 +2317,7 @@ def phase_twopass(dev, card, kernels, err):
         del fd, wts, got, want
         timer2, stats2 = debug.PhaseTimer(), {}
         _, acc_launches, acc_s, _ = peak_run(
-            "twopass_accum", ("accum_sweep", "resolve_jump"),
+            "twopass_accum", ("accum_topo", "resolve_jump"),
             lambda: out_of_core_accum_d8(
                 path("fd.npy"), out_path=path("acc.npy"), tile=tile,
                 method="twopass", stats=stats2, device=dev, timer=timer2))
@@ -2488,7 +2547,7 @@ def phase_sharded(dev, card, kernels, err, main_best):
     stats = {}
     t0 = time.perf_counter()
     out, launches = run_path(
-        "sharded", kernels, ("fill_sweep", "d8", "accum_sweep", "terrain"),
+        "sharded", kernels, ("fill_sweep", "d8", "accum_topo", "terrain"),
         lambda: sharded_pipeline(z, mesh=mesh, eps=eps, stats=stats))
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base
@@ -2518,7 +2577,7 @@ def phase_sharded(dev, card, kernels, err, main_best):
     t0 = time.perf_counter()
     (two, acc2), tp_launches = run_path(
         "sharded_twopass", kernels,
-        ("fill_sweep", "d8", "dist_sweep", "resolve_jump", "accum_sweep"),
+        ("fill_sweep", "d8", "dist_sweep", "resolve_jump", "accum_topo"),
         lambda: (sharded_fill_twopass(z, mesh=mesh, stats=st_f),
                  sharded_accumulation_d8_twopass(out["flowdirs"], mesh=mesh,
                                                  stats=st_a)))
@@ -2621,7 +2680,7 @@ def phase_sharded(dev, card, kernels, err, main_best):
     ny, nx = SHARDED_MESH
     for names, e, ring, what in (
             (("fill_sweep", "d8", "terrain"), MAIN, 2, "extended block"),
-            (("accum_sweep", "dist_sweep", "resolve_jump"), MAIN, 0,
+            (("accum_topo", "dist_sweep", "resolve_jump"), MAIN, 0,
              "shard"),
             (("mfd_sweep",), edge, 0, "shard")):
         bh, bw = e // ny + ring, e // nx + ring
@@ -2642,7 +2701,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     kernels = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP,
-               flats.DIST_SWEEP, terrain.TERRAIN, dinf.DINF_SWEEP,
+               accum.ACCUM_TOPO, flats.DIST_SWEEP, terrain.TERRAIN, dinf.DINF_SWEEP,
                mfd.MFD_SWEEP, mfd.MFD_TOPO, flowdirs.RHO8,
                successor.RESOLVE_SWEEP, successor.RESOLVE_JUMP,
                successor.STRAHLER_SWEEP,
@@ -2655,7 +2714,7 @@ def main():
     phase_native_flow(dev)
     phase_serpentine(dev, card)
     out, launches, z, main_best = phase_main(dev, card, kernels)
-    phase_flats_full(out)
+    phase_flats_full(out, err)
     path_launches = {"main": launches,
                      "config2": phase_config2(dev, card, kernels),
                      "terrain": phase_terrain(dev, card, z, kernels)}

@@ -35,10 +35,16 @@
 // columns tx, tx + 256, ... and read rows k - 1, k and k + 1 from the ring.
 // Convergence is judged by the caller on whole rotations (per-sweep flags
 // chatter in the last bit of float sums), so the kernel has no change flag.
+//
+// On a card the sweeps are the fallback: the same codes feed the
+// topological pass of flow_topo.cuh (rd_accum_topo below), which solves
+// codes without a cycle once, in order, instead of by rotations of this
+// sweep (each turn of a donor chain costs a sweep another rotation).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "flow_topo.cuh"
 #include "row_ring.cuh"
 
 #ifndef RD_TILE
@@ -324,6 +330,22 @@ int launch(const float* acc_in, const float* wgt, const int8_t* fd,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The D8 codes as a field of the topological pass (flow_topo.cuh): cell i
+// sends everything to the neighbour its code names (1..8); a code <= 0
+// (NO_FLOW, nodata) sends nothing, nor does one pointing off the grid (the
+// pass tests that).  Every share is 1 (UNIT), so no in-share plane is laid
+// out.  The name holds this file's kernel's, by which a trace claims the
+// layer's time (the pass's count and solve kernels are templated on it).
+struct accum_sweep_kernel_d8 {
+  struct Ptrs {
+    const int8_t* codes;
+  };
+  static constexpr bool UNIT = true;
+  static __device__ float share(const Ptrs& p, int d, int i) {
+    return __ldg(p.codes + i) == d ? 1.0f : 0.0f;
+  }
+};
+
 }  // namespace
 
 // One launch over the full tiles, one over a ragged last tile.
@@ -345,4 +367,14 @@ extern "C" int rd_accum_sweep(const float* acc_in, const float* wgt,
   if (w % TILE == 0) return 0;
   return launch<0>(acc_in, wgt, fd, acc_out, h, w, reverse, full_tiles, 1,
                    st);
+}
+
+// The topological pass over the codes (flow_topo.cuh): `acc` written where
+// a cell is solved, the count of cells solved to a number in ctl[64].
+extern "C" int rd_accum_topo(const int8_t* fd, const float* wgt, float* acc,
+                             int* deps, unsigned long long* order, int* ctl,
+                             int h, int w, void* stream) {
+  return rd::launch_flow_topo<accum_sweep_kernel_d8>(
+      accum_sweep_kernel_d8::Ptrs{fd}, wgt, acc, deps, nullptr, order, ctl,
+      h, w, stream);
 }

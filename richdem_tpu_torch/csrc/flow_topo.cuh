@@ -1,8 +1,10 @@
 // Multi-flow accumulation A = w + P^T A solved once, in topological order,
 // for a field whose shares hold no cycle (after a fill every share goes
 // strictly downhill).  Templates over a field that says what cell i sends
-// toward D8 direction d (F::share); mfd_sweep.cu instantiates them over
-// MfdField.
+// toward D8 direction d (F::share) and whether every share it sends is 1
+// (F::UNIT); mfd_sweep.cu instantiates them over MfdField, accum_sweep.cu
+// over the D8 codes (a cell sends everything to the one neighbour its code
+// names: UNIT).
 //
 // Replaces no TPU kernel: the TPU engines reach the same fixpoint by
 // rotations of directional sweeps (flow_sweep.cuh, the fallback here).  A
@@ -16,8 +18,9 @@
 //          on-grid neighbours send c a nonzero share (bits 0-7), the
 //          directions c sends to (8-15) and those it takes from (16-23);
 //          inshare[c] the 8 shares its neighbours send it, 32 bytes a cell
-//          (one sector where the planes would take 8).  It also fills
-//          `order` with EMPTY and clears the control block.
+//          (one sector where the planes would take 8), unless the field is
+//          UNIT.  It also fills `order` with EMPTY and clears the control
+//          block.
 //   solve: one cooperative grid (every block resident), level by level.
 //          Level 0 is the cells with no donor.  A level's entries (the
 //          cell with its two masks) lie in order[lo, hi), handed to the
@@ -27,7 +30,9 @@
 //          over the directions d = 1..8 whose neighbour n_d sends c a
 //          nonzero share s_d, each product and each sum rounded
 //          (__fmul_rn, __fadd_rn): the order of the plain version, so the
-//          two agree bitwise whatever the schedule.  The cell counts down
+//          two agree bitwise whatever the schedule.  A UNIT field loads no
+//          share and multiplies by none (a product by 1 is exact, so the
+//          sum is that of the same field as planes).  The cell counts down
 //          its receivers' counters as it loads; a receiver whose counter
 //          reaches zero goes to its block's buffer in shared memory.  At
 //          the level's end each block arrives and reserves the slots of its
@@ -51,7 +56,10 @@
 // that also reserves its slots, the level's bounds carried by the
 // barrier's one word, and the control words on lines of their own.
 // Measured on an H100 (PERF.md): per-block frontiers (no redistribution)
-// and a per-block dataflow queue were both slower, by imbalance.
+// and a per-block dataflow queue were both slower, by imbalance.  Over D8
+// codes the levels are fewer (about 2 000 after an eps = 0 fill, 10 000
+// after flat resolution, at 10240^2) but the first ones wide (a third of
+// the cells at eps = 0), so a level costs about 12 and 5 us there.
 //
 // Cells are indexed in int32: h * w <= 2^30 (the launcher refuses more).
 
@@ -214,10 +222,12 @@ __global__ void __launch_bounds__(NT)
     if (s[d - 1] != 0.0f) in_m |= 1u << (d - 1);
     if (ok && F::share(fp, d, c) != 0.0f) out_m |= 1u << (d - 1);
   }
-  float4* out =
-      reinterpret_cast<float4*>(inshare) + 2 * static_cast<size_t>(c);
-  out[0] = make_float4(s[0], s[1], s[2], s[3]);
-  out[1] = make_float4(s[4], s[5], s[6], s[7]);
+  if constexpr (!F::UNIT) {
+    float4* out =
+        reinterpret_cast<float4*>(inshare) + 2 * static_cast<size_t>(c);
+    out[0] = make_float4(s[0], s[1], s[2], s[3]);
+    out[1] = make_float4(s[4], s[5], s[6], s[7]);
+  }
   deps[c] = __popc(in_m) | (out_m << 8) | (in_m << 16);
   order[c] = EMPTY;
 }
@@ -241,6 +251,7 @@ struct Next {
 // Solve one cell whose donors are all solved, then count down its
 // receivers; those it readies go to `next`.  Returns 1 if the value is a
 // number.
+template <class F>
 __device__ __forceinline__ int solve_cell(unsigned long long e,
                                           const float* __restrict__ wgt,
                                           float* acc, int* deps,
@@ -257,9 +268,11 @@ __device__ __forceinline__ int solve_cell(unsigned long long e,
     old[d - 1] = (out_m >> (d - 1)) & 1u
                      ? atomicSub(deps + c + dy(d) * w + dx(d), 1)
                      : 0;
+  // the in-shares: a UNIT field's are 1, neither loaded nor multiplied by
   const float4* sp =
       reinterpret_cast<const float4*>(inshare) + 2 * static_cast<size_t>(c);
-  const float4 s0 = __ldg(sp), s1 = __ldg(sp + 1);
+  const float4 s0 = F::UNIT ? float4{} : __ldg(sp);
+  const float4 s1 = F::UNIT ? float4{} : __ldg(sp + 1);
   const float s_in[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
   float a_in[8];
 #pragma unroll
@@ -270,7 +283,8 @@ __device__ __forceinline__ int solve_cell(unsigned long long e,
   float a = __ldg(wgt + c);
 #pragma unroll
   for (int d = 0; d < 8; ++d)
-    if ((in_m >> d) & 1u) a = __fadd_rn(a, __fmul_rn(a_in[d], s_in[d]));
+    if ((in_m >> d) & 1u)
+      a = __fadd_rn(a, F::UNIT ? a_in[d] : __fmul_rn(a_in[d], s_in[d]));
   acc[c] = a;
 #pragma unroll
   for (int d = 1; d <= 8; ++d)
@@ -279,9 +293,9 @@ __device__ __forceinline__ int solve_cell(unsigned long long e,
   return a == a ? 1 : 0;
 }
 
-// Templated on the field only so that its name carries the field's (a
-// trace claims the layer's time by it): it reads the in-shares that
-// count_kernel laid out.
+// Templated on the field so that its name carries the field's (a trace
+// claims the layer's time by it), and for UNIT: otherwise it reads the
+// in-shares that count_kernel laid out.
 template <class F>
 __global__ void __launch_bounds__(NT, BLOCKS_PER_SM)
     solve_kernel(const float* __restrict__ wgt, float* acc, int* deps,
@@ -315,7 +329,7 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM)
           while ((e = ld_relaxed_u64(order + k)) == EMPTY)
             if (now_ns() - t0 > 10000000000ull) __trap();
         }
-        solved += solve_cell(e, wgt, acc, deps, inshare, w, next);
+        solved += solve_cell<F>(e, wgt, acc, deps, inshare, w, next);
       }
     }
     lo = hi;
@@ -333,7 +347,8 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM)
 }  // namespace topo
 
 // Count, then solve.  `deps`: h * w int32 of scratch; `inshare`: 8 * h * w
-// floats of scratch, 16-byte aligned; `order`: h * w uint64 of scratch;
+// floats of scratch, 16-byte aligned (none for a UNIT field: null);
+// `order`: h * w uint64 of scratch;
 // `ctl`: 128 int32 (all cleared or filled by the count kernel on
 // `stream`); `acc`: h * w floats, written where a cell is solved.  After
 // the stream reaches it, ctl[64] holds the cells solved to a number (not

@@ -47,7 +47,9 @@ struct MfdField {
   static __device__ float tap(const View<NSLOT>& v, int c, bool in) {
     return v.at(3 + ROLE, c, in && v.row_ok(rd::flow::row_of(ROLE)));
   }
-  // share of cell i toward direction d (flow_topo.cuh), read-only
+  // share of cell i toward direction d (flow_topo.cuh), read-only; the
+  // shares are fractions, laid out for the solve by the count kernel
+  static constexpr bool UNIT = false;
   static __device__ float share(const Ptrs& p, int d, int i) {
     return __ldg(p.planes + (d - 1) * p.plane + i);
   }

@@ -1,15 +1,26 @@
-"""Flow accumulation: D8 by Gauss–Seidel directional sweeps, and the entry
-points of D∞ and multi-flow accumulation.
+"""Flow accumulation: D8 by one pass in topological order on a card and by
+Gauss–Seidel directional sweeps elsewhere, and the entry points of D∞ and
+multi-flow accumulation.
 
 Counterpart of ``richdem_tpu.ops.accum``.  D8 (``_d8_gs_impl``,
 ``d8_accumulation``) replaces the TPU kernels
 ``richdem_tpu.ops.pallas_folded._accum_kernel`` /
 ``pallas_sweeps._accum_down_kernel``.  One sweep solves ``A = w + PᵀA``
 along every flow-path segment that is monotone in its direction; a rotation
-is down, up, transposed-down, transposed-up.  A CUDA tensor goes through
-``csrc/accum_sweep.cu``; a CPU tensor through :func:`accum_sweep_plain`.
-Convergence is equality over a whole rotation (per-sweep flags chatter in
-the last bit of float sums), and a non-converged result raises.
+is down, up, transposed-down, transposed-up (:func:`d8_accumulation_sweeps`).
+A CUDA tensor goes through ``csrc/accum_sweep.cu``; a CPU tensor through
+:func:`accum_sweep_plain`.  Convergence is equality over a whole rotation
+(per-sweep flags chatter in the last bit of float sums), and a
+non-converged result raises.
+
+On a CUDA tensor :func:`d8_accumulation_info` first solves the codes once
+in topological order (:func:`d8_topo`: ``csrc/flow_topo.cuh`` over the
+codes, an entry point of the sweep's library; plain version
+:func:`d8_topo_plain`): a cell's value is its weight plus its donors',
+pulled once they all have theirs, level after level.  Codes without a
+cycle are solved whole and no rotation runs; codes with one leave cells
+unsolved, and the sweeps run from ``A = w`` as above.  A CPU tensor takes
+the sweeps.
 
 :func:`flow_accumulation_from_props` and
 :func:`dinf_accumulation_from_angles` run multi-flow accumulation
@@ -34,7 +45,8 @@ from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.dinf import (DINF_DEPTH, dinf_accumulation,
                                         dinf_two_tap)
 from richdem_tpu_torch.ops.fill import _require_converged, _rotation_cap
-from richdem_tpu_torch.ops.mfd import MFD_DEPTH, mfd_accumulation
+from richdem_tpu_torch.ops.mfd import (MFD_DEPTH, mfd_accumulation,
+                                       mfd_topo_plain)
 from richdem_tpu_torch.ops.stencil import as_tensor, neighbor
 from richdem_tpu_torch.ops.successor import successor_table
 from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
@@ -42,8 +54,10 @@ from richdem_tpu_torch.ops.sweeps import (PERM_TRANSPOSE,
                                           accumulation_trios, pad_row,
                                           seam_columns)
 
-__all__ = ["ACCUM_SWEEP", "PERM_TRANSPOSE", "accum_sweep",
-           "accum_sweep_plain", "d8_accumulation_info", "d8_accumulation",
+__all__ = ["ACCUM_SWEEP", "ACCUM_TOPO", "PERM_TRANSPOSE", "accum_sweep",
+           "accum_sweep_plain", "d8_topo", "d8_topo_plain",
+           "d8_accumulation_sweeps", "d8_accumulation_info",
+           "d8_accumulation",
            "flow_accumulation_from_props", "dinf_accumulation_from_angles",
            "accumulation_jacobi_info", "d8_accumulation_doubling"]
 
@@ -51,6 +65,11 @@ _P = ctypes.c_void_p
 ACCUM_SWEEP = Kernel("accum_sweep", "rd_accum_sweep",
                      [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P])
+#: The topological pass, an entry point of the same library
+#: (``csrc/accum_sweep.cu`` over ``csrc/flow_topo.cuh``).
+ACCUM_TOPO = Kernel("accum_sweep", "rd_accum_topo",
+                    [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                     _P])
 
 
 def accum_sweep_plain(acc_in, w, fd, reverse, tile=SWEEP_TILE):
@@ -120,20 +139,94 @@ def accum_sweep(acc_in, w, fd, reverse):
     return out
 
 
-def d8_accumulation_info(flowdirs, weights, max_rotations=64,
-                         sweep=accum_sweep):
+def d8_topo_plain(flowdirs, w, stats=None):
+    """Plain version of the topological pass over D8 codes: the multi-flow
+    pass's plain version (:func:`~richdem_tpu_torch.ops.mfd.mfd_topo_plain`)
+    over one-hot planes of the codes, a share of 1 toward the direction a
+    code in 1..8 names.  A product by 1 is exact, so this is the kernel's
+    sum ``((w + a₁) + a₂) + …`` over the donors in direction order, bitwise.
+
+    ``flowdirs``: (H, W) codes (≤ 0 and off-grid targets send nothing);
+    ``w``: (H, W) float32.  Returns ``(acc, left)`` as ``mfd_topo_plain``
+    does: ``left`` counts the cells on a cycle (each sends only to the
+    next, so nothing lies downstream of one) and those solved to NaN;
+    ``stats`` gains the count of levels."""
+    fd = flowdirs.to(torch.int64)
+    planes = torch.stack([(fd == d) for d in range(1, 9)]).to(torch.float32)
+    return mfd_topo_plain(planes, w.to(torch.float32), stats)
+
+
+def d8_topo(flowdirs, w):
+    """The topological pass over ``(H, W)`` int8 codes and float32 weights,
+    both contiguous; returns ``(acc, left)`` as :func:`d8_topo_plain` does
+    (``acc`` is unwritten where a cell is left unsolved).  A CUDA tensor
+    launches ``csrc/flow_topo.cuh``'s two kernels over the codes and reads
+    the count of solved cells, the pass's one host sync; a CPU tensor runs
+    the plain version."""
+    if not flowdirs.is_cuda:
+        return d8_topo_plain(flowdirs, w)
+    for x, dt, name in ((flowdirs, torch.int8, "flowdirs"),
+                        (w, torch.float32, "w")):
+        if (x.dim() != 2 or x.dtype != dt or not x.is_contiguous()
+                or x.shape != flowdirs.shape or x.device != flowdirs.device):
+            raise ValueError(f"{name}: expected a contiguous {dt} tensor "
+                             f"shaped and placed like flowdirs")
+    h, wd = flowdirs.shape
+    n = h * wd
+    if n > 2**30:
+        raise ValueError(f"{h}x{wd}: the topological pass takes at most "
+                         "2**30 cells")
+    dev = flowdirs.device
+    acc = torch.empty((h, wd), dtype=torch.float32, device=dev)
+    if n == 0:
+        return acc, 0
+    deps = torch.empty(n, dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    ctl = torch.empty(128, dtype=torch.int32, device=dev)
+    ACCUM_TOPO.launch(flowdirs.data_ptr(), w.data_ptr(), acc.data_ptr(),
+                      deps.data_ptr(), order.data_ptr(), ctl.data_ptr(), h,
+                      wd, stream_handle(dev))
+    return acc, n - int(ctl[64])  # the control block's count of solved
+
+
+def _topo_first(fd):
+    """Whether :func:`d8_accumulation_info` tries the topological pass
+    before the sweeps: on a card, for a grid of at most 2**30 cells, which
+    it indexes in int32."""
+    return fd.is_cuda and fd.numel() <= 2**30
+
+
+def d8_accumulation_sweeps(flowdirs, weights, max_rotations=64,
+                           sweep=accum_sweep):
     """GS rotations from ``A = w`` until a rotation changes nothing; returns
     ``(accum, rotations, converged)`` without raising.  Nodata codes (< 0)
     act as NO_FLOW; give them zero weight."""
+    fd = flowdirs.to(torch.int8).contiguous()
+    w = weights.to(torch.float32).contiguous()
+    perm = torch.as_tensor(PERM_TRANSPOSE, device=fd.device)
+    fd_t = perm[fd.clamp(min=0).long()].t().contiguous()
+    w_t = w.t().contiguous()
+    return accumulation_rotations(
+        w, lambda a, rev: sweep(a, w, fd, rev),
+        lambda a, rev: sweep(a, w_t, fd_t, rev), max_rotations)
+
+
+def d8_accumulation_info(flowdirs, weights, max_rotations=64):
+    """Exact D8 accumulation; returns ``(accum, rotations, converged)``
+    without raising.  On a card the topological pass (:func:`d8_topo`)
+    solves codes without a cycle with no rotation: ``(accum, 0, True)``.
+    Codes it leaves unsolved, a CPU tensor and a card grid past 2**30
+    cells take the sweeps (:func:`d8_accumulation_sweeps`), at most
+    ``max_rotations`` rotations.  Nodata codes (< 0) act as NO_FLOW; give
+    them zero weight."""
     with span("rd.accum"):
         fd = flowdirs.to(torch.int8).contiguous()
         w = weights.to(torch.float32).contiguous()
-        perm = torch.as_tensor(PERM_TRANSPOSE, device=fd.device)
-        fd_t = perm[fd.clamp(min=0).long()].t().contiguous()
-        w_t = w.t().contiguous()
-        return accumulation_rotations(
-            w, lambda a, rev: sweep(a, w, fd, rev),
-            lambda a, rev: sweep(a, w_t, fd_t, rev), max_rotations)
+        if _topo_first(fd):
+            acc, left = d8_topo(fd, w)
+            if not left:
+                return acc, 0, True
+        return d8_accumulation_sweeps(fd, w, max_rotations)
 
 
 def d8_accumulation(flowdirs, weights=None, no_data_mask=None,

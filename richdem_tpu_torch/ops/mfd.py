@@ -208,7 +208,7 @@ def transpose_planes(planes):
     return out
 
 
-def mfd_topo_plain(planes, w):
+def mfd_topo_plain(planes, w, stats=None):
     """Plain version of the topological pass (``csrc/flow_topo.cuh``):
     Kahn's algorithm by levels over the graph of nonzero shares, in float32.
     A cell's value is pulled from its donors once they all have theirs,
@@ -220,7 +220,9 @@ def mfd_topo_plain(planes, w):
     ``w``: (H, W) float32.  Returns ``(acc, left)``: ``left`` counts the
     cells the pass leaves without a number (on a cycle of the shares or
     downstream of one, where ``acc`` reads 0), and those it solves to NaN,
-    on which the sweeps never converge either."""
+    on which the sweeps never converge either.  ``stats``, a dict, gains
+    ``levels``: the levels the pass solved, the cells on the longest
+    chain of donors."""
     _, h, wd = planes.shape
     n = h * wd
     dev = planes.device
@@ -246,8 +248,9 @@ def mfd_topo_plain(planes, w):
     acc = torch.zeros(n, dtype=torch.float32, device=dev)
     wf = w.reshape(n)
     ready = torch.nonzero(deps == 0).flatten()
-    solved = 0
+    solved = levels = 0
     while ready.numel():
+        levels += 1
         a = wf[ready]
         for d in range(1, 9):
             inv = int(topology.D8_INVERSE[d])
@@ -261,6 +264,8 @@ def mfd_topo_plain(planes, w):
                                                  dtype=torch.int32))
         recv = torch.unique(recv)
         ready = recv[deps[recv] == 0]
+    if stats is not None:
+        stats["levels"] = levels
     return acc.view(h, wd), n - solved
 
 

@@ -36,13 +36,16 @@ on grids wider than the card's resident blocks, and through a whole Quinn
 fixpoint at 512².  The topological multi-flow pass (its count and solve
 kernels) is bitwise its plain version and itself on a second run, on
 those shapes with holes and at 512², and hands a field with a cycle to
-the sweeps.  The successor jump's kernels equal their plain version
+the sweeps; so is the pass over D8 codes (nodata holes, off-grid targets,
+unit and float weights; at 10240² on the codes of both D8 cells), which
+the entry point takes with no sweep, native-exact at 2048² and 4096², and
+which hands a cycle to the sweeps.  The successor jump's kernels equal their plain version
 bitwise (and themselves on a second launch) on random codes with cycles
 and on Perlin codes at the ragged shapes, a row, a column and around tile
 edges, and the resolve sweeps' fixpoint at 1000×1100; the entry points
 and the two-pass tile labels take them on a card, and a grid they cannot
 index raises there.  The two-pass programs at 1024²
-(tile 256) run the fill, D8, distance, jump and accumulation kernels and
+(tile 256) run the fill, D8, distance, jump and D8 pass kernels and
 equal the
 in-core results and the native consumer bitwise, as does the ε Schwarz
 fill the in-core ε-fill from BIG; the min-plus names run the fill kernel
@@ -69,6 +72,7 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
 
 SHAPES = [(37, 2100), (300, 1025), (1030, 45)]
+RAGGED_TOPO = (1000, 1100)  # the D8 pass with holes, as chip_smoke's
 
 
 @pytest.fixture(scope="module")
@@ -138,10 +142,12 @@ def test_accum_sweep_kernel_matches_plain(dev, shape):
         assert torch.equal(ak, ap)  # same grouping, same seams
         acc = ak
     ones = torch.where(mask, 0.0, torch.ones_like(z))
-    got = accum.d8_accumulation(fd, ones)
-    ref, _, done = accum.d8_accumulation_info(fd, ones, 64,
-                                              sweep=accum.accum_sweep_plain)
-    assert done and torch.equal(got, ref)
+    got, rk, dk = accum.d8_accumulation_sweeps(fd, ones, 64)
+    ref, rp, dp = accum.d8_accumulation_sweeps(fd, ones, 64,
+                                               sweep=accum.accum_sweep_plain)
+    assert dk and dp and rk == rp and torch.equal(got, ref)
+    # the entry takes the topological pass: the same integer sums
+    assert torch.equal(accum.d8_accumulation(fd, ones), ref)
 
 
 def _flat_case(shape, dev):
@@ -1164,11 +1170,124 @@ def test_mfd_topo_falls_back_on_a_cycle(dev):
         mfd.mfd_accumulation(planes.permute(1, 2, 0), max_rotations=1)
 
 
+# -- the topological pass over the D8 codes ---------------------------------
+
+
+def _d8_topo_held(fd, w):
+    """The D8 pass's two kernels ↔ ``d8_topo_plain``: the same count of
+    cells left and, where none is, the same bits; a second launch gives
+    the same bits again."""
+    before = accum.ACCUM_TOPO.launches
+    got, left = accum.d8_topo(fd, w)
+    again, left2 = accum.d8_topo(fd, w)
+    torch.cuda.synchronize()
+    assert accum.ACCUM_TOPO.launches == before + 2
+    ref, left_p = accum.d8_topo_plain(fd, w)
+    assert left == left2 == left_p
+    if not left:
+        assert torch.equal(got, ref) and torch.equal(again, got)
+    return got, left
+
+
+def _holed_codes(shape, dev, seed):
+    """ε = 0 D8 codes of a Perlin DEM with nodata holes (-1), the first
+    row's data cells pointing north, off the grid; and the nodata mask."""
+    z, mask = _dem(shape, dev, seed=seed)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=0.0)
+    assert done
+    fd = flowdirs.d8_core(filled, mask)
+    fd[0] = torch.where(fd[0] >= 0, 3, fd[0]).to(fd.dtype)
+    return fd, mask
+
+
+@pytest.mark.parametrize("weights", ["unit", "float"])
+@pytest.mark.parametrize("shape", SHAPES + [RAGGED_TOPO, (1, 1), (1, 7),
+                                            (5, 1)])
+def test_d8_topo_kernels_match_plain(dev, shape, weights):
+    """Codes with nodata holes and off-grid targets, unit or float weights
+    (zero at nodata): bitwise the plain version, and the same bits
+    twice."""
+    fd, mask = _holed_codes(shape, dev, seed=shape[1])
+    rng = np.random.default_rng(shape[0])
+    w = (torch.ones(shape) if weights == "unit" else torch.from_numpy(
+        rng.uniform(0.1, 2.0, shape).astype(np.float32)))
+    w = torch.where(mask, 0.0, w.to(dev))
+    assert _d8_topo_held(fd, w)[1] == 0
+
+
+@pytest.mark.parametrize("codes", ["d8", "resolved"])
+@pytest.mark.parametrize("edge", [2048, 4096])
+def test_d8_topo_entry_is_native_exact(dev, edge, codes):
+    """The entry point on ε = 0 Perlin codes, before and after flat
+    resolution: one pass, no sweep, ``(acc, 0, True)``, equal to the
+    native engine's float64 queue in every cell (each sum an integer of
+    at most 2²⁴)."""
+    from richdem_tpu_torch import native
+
+    z = tsynth.perlin_dem(edge, edge, seed=edge % 7, device=dev)
+    mask = torch.zeros_like(z, dtype=torch.bool)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=0.0)
+    assert done
+    fd = flowdirs.d8_core(filled, mask)
+    if codes == "resolved":
+        fd = flats.resolve_flats(filled, fd)
+    ones = torch.ones_like(z)
+    sweeps_before = accum.ACCUM_SWEEP.launches
+    topo_before = accum.ACCUM_TOPO.launches
+    acc, rot, done = accum.d8_accumulation_info(fd, ones)
+    torch.cuda.synchronize()
+    assert (rot, done) == (0, True)
+    assert accum.ACCUM_SWEEP.launches == sweeps_before
+    assert accum.ACCUM_TOPO.launches == topo_before + 1
+    np.testing.assert_array_equal(acc.cpu().numpy(),
+                                  native.accum_d8(fd.cpu().numpy()))
+
+
+@pytest.fixture(scope="module")
+def codes_10240(dev):
+    """The 10240² seed-0 Perlin DEM's ε = 0 D8 codes, and the same codes
+    after flat resolution."""
+    z = tsynth.perlin_dem(10240, 10240, seed=0, device=dev)
+    mask = torch.zeros_like(z, dtype=torch.bool)
+    filled, _, done = fill.fill_depressions_info(z, mask, eps=0.0)
+    assert done
+    fd = flowdirs.d8_core(filled, mask)
+    return {"d8": fd, "resolved": flats.resolve_flats(filled, fd)}
+
+
+@pytest.mark.parametrize("codes", ["d8", "resolved"])
+def test_d8_topo_10240_matches_plain(dev, codes_10240, codes):
+    """At 10240², on the codes of both D8 cells of the benchmark: every
+    cell solved, bitwise the plain version."""
+    fd = codes_10240[codes]
+    assert _d8_topo_held(fd, torch.ones(fd.shape, device=dev))[1] == 0
+
+
+def test_d8_topo_falls_back_on_a_cycle(dev):
+    """A four-cell cycle: the pass leaves its cells, the entry point runs
+    the sweeps from A = w, and its result is theirs bit for bit; the
+    rotation cap still governs there (a cycle of unit weights never
+    converges)."""
+    fd, mask = _holed_codes((300, 1025), dev, seed=6)
+    for d, (r, c) in ((5, (2, 2)), (7, (2, 3)), (1, (3, 3)), (3, (3, 2))):
+        fd[r, c] = d
+    ones = torch.ones_like(fd, dtype=torch.float32)
+    assert _d8_topo_held(fd, ones)[1] == 4
+    before = accum.ACCUM_SWEEP.launches
+    acc, rot, done = accum.d8_accumulation_info(fd, ones, 16)
+    assert accum.ACCUM_SWEEP.launches > before
+    ref, rr, dr = accum.d8_accumulation_sweeps(fd, ones, 16)
+    assert (rot, done) == (rr, dr) == (16, False)
+    assert torch.equal(acc, ref)
+    with pytest.raises(RuntimeError, match="did not converge"):
+        accum.d8_accumulation(fd, ones, max_rotations=16)
+
+
 # -- the two-pass programs and the min-plus names -------------------------
 
 TWOPASS_EDGE, TWOPASS_TILE = 1024, 256
 TWOPASS_KERNELS = (fill.FILL_SWEEP, flowdirs.D8, flats.DIST_SWEEP,
-                   successor.RESOLVE_JUMP, accum.ACCUM_SWEEP)
+                   successor.RESOLVE_JUMP, accum.ACCUM_TOPO)
 
 
 @pytest.fixture(scope="module")
@@ -1207,20 +1326,21 @@ def test_twopass_fill_on_the_card(dev, twopass_disk):
 
 @pytest.mark.parametrize("method", ["twopass", "schwarz"])
 def test_twopass_accum_on_the_card(dev, twopass_disk, method):
-    """D8 accumulation of the fill's codes at 1024², tile 256: bitwise the
-    in-core accumulation (every sum an integer below 2²⁴)."""
+    """D8 accumulation of the fill's codes at 1024², tile 256, through the
+    topological pass on each tile: bitwise the in-core accumulation (every
+    sum an integer below 2²⁴)."""
     from richdem_tpu_torch.parallel.outofcore import out_of_core_accum_d8
 
     d, _, filled = twopass_disk
     fd = flowdirs.d8_flowdirs(filled, no_data=-9999.0)
     np.save(d / "fd.npy", fd.cpu().numpy())
     want = accum.d8_accumulation(fd, weights=torch.where(fd < 0, 0.0, 1.0))
-    before = accum.ACCUM_SWEEP.launches
+    before = accum.ACCUM_TOPO.launches
     stats = {}
     got = np.load(out_of_core_accum_d8(
         str(d / "fd.npy"), out_path=str(d / f"a_{method}.npy"),
         tile=TWOPASS_TILE, method=method, stats=stats))
-    assert accum.ACCUM_SWEEP.launches > before
+    assert accum.ACCUM_TOPO.launches > before
     if method == "twopass":
         assert stats["data_passes"] == 2
     np.testing.assert_array_equal(got, want.cpu().numpy())
@@ -1310,16 +1430,16 @@ def sharded_dem(dev):
 
 
 def test_sharded_pipeline_on_the_card(dev, sharded_dem):
-    """ε = 1e-3 over the 2×2 mesh through the fill, D8, accumulation and
-    terrain kernels on 514×552 extended blocks: the fill bitwise the
-    in-core fill from BIG (and ``fill_epsilon`` from its multigrid start),
-    codes, accumulation (integer sums below 2²⁴) and slope bitwise the
-    in-core ops."""
+    """ε = 1e-3 over the 2×2 mesh through the fill, D8, topological
+    accumulation and terrain kernels on 514×552 extended blocks: the fill
+    bitwise the in-core fill from BIG (and ``fill_epsilon`` from its
+    multigrid start), codes, accumulation (integer sums below 2²⁴) and
+    slope bitwise the in-core ops."""
     from richdem_tpu_torch.parallel import sharded_pipeline
 
     z, mask, mesh = sharded_dem
-    names = ("fill_sweep", "d8", "accum_sweep", "terrain")
-    ks = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_SWEEP, terrain.TERRAIN]
+    names = ("fill_sweep", "d8", "accum_topo", "terrain")
+    ks = [fill.FILL_SWEEP, flowdirs.D8, accum.ACCUM_TOPO, terrain.TERRAIN]
     before = [k.launches for k in ks]
     stats = {}
     out = sharded_pipeline(z, mesh=mesh, eps=1e-3, nodata_mask=mask,

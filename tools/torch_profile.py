@@ -9,7 +9,8 @@ Run from the repository root on a machine with a card and ``nvcc``:
 PATH is any of ``main``, ``config2``, ``flats``, ``dinf_twi``,
 ``quinn_mfd``, ``d8_methods``, ``rho8``, ``api``, ``depths``,
 ``scan_widths``, ``sweep_rows``, ``flow_tiles``, ``walk_tiles``,
-``resolve_tiles`` and ``stencils`` (all when none is named).  Paths, at
+``resolve_tiles``, ``stencils`` and ``d8_levels`` (all when none is
+named).  Paths, at
 10240² on a Perlin DEM (seed 0), each after one warm-up step:
 
 * ``main``    — ``make_pipeline(eps=0, with_twi=True)`` (BASELINE.json
@@ -92,6 +93,15 @@ plain version first (terrain's atan attributes within rtol 1e-6, the rest
 bitwise); one JSON line per kernel, variant and width with the
 milliseconds per call, the bound (``chip_smoke.bound_ms``) and its share,
 and the registers and spills of the entry that ran.
+``d8_levels`` runs no trace either: on the 8 surfaces of the benchmark's
+Perlin pool (seeds 0–7 at 10240²) it takes the ε = 0 fill's D8 codes
+(the ``d8_pipeline_10k`` cell's) and the same codes after flat resolution
+(the ``d8_basins_10k`` cell's), counts the levels of the topological pass
+over each with its plain version (the cells on the longest chain of
+donors), holds the pass bitwise to it, and times one call of the pass
+with CUDA events (one warm-up call, then the mean of three); one JSON
+line per surface and codes with the levels, the NO_FLOW share, the
+milliseconds per call and the microseconds per level.
 
 For each path it writes the Chrome trace to ``OUT_DIR`` (a directory that
 git ignores) and prints one JSON line: the host wall time of the traced
@@ -123,7 +133,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 MAIN = 10240
 PATHS = ("main", "config2", "flats", "dinf_twi", "quinn_mfd", "d8_methods",
          "rho8", "api", "depths", "scan_widths", "sweep_rows", "flow_tiles",
-         "walk_tiles", "resolve_tiles", "stencils")
+         "walk_tiles", "resolve_tiles", "stencils", "d8_levels")
 DEPTH_SIZE = 4096
 DEPTHS = (1, 8, 32, 0)
 SCAN_ROWS = 2048
@@ -685,6 +695,39 @@ def stencils(dev, card):
                 "card": card}), flush=True)
 
 
+def d8_levels(dev, card):
+    """The topological pass's levels and time on the D8 codes of the
+    benchmark's two D8 cells, surface by surface of its pool."""
+    import torch
+    from richdem_tpu_torch import resolve_flats
+    from richdem_tpu_torch import synth as tsynth
+    from richdem_tpu_torch.ops import accum, fill, flowdirs
+
+    for seed in range(8):
+        z = tsynth.perlin_dem(MAIN, MAIN, seed=seed, device=dev)
+        nd = torch.zeros_like(z, dtype=torch.bool)
+        filled, _, done = fill.fill_depressions_info(z, nd, eps=0.0)
+        if not done:
+            raise RuntimeError(f"seed {seed}: the fill did not converge")
+        fd = flowdirs.d8_core(filled, nd)
+        ones = torch.ones_like(z)
+        for cell, codes in (("d8_pipeline_10k", fd),
+                            ("d8_basins_10k", resolve_flats(filled, fd))):
+            stats = {}
+            ref, left = accum.d8_topo_plain(codes, ones, stats)
+            got, left_k = accum.d8_topo(codes, ones)
+            if left or left_k or not torch.equal(got, ref):
+                raise AssertionError(f"seed {seed}, {cell}: the pass "
+                                     "differs from its plain version")
+            ms = _events_ms(lambda: accum.d8_topo(codes, ones))
+            print(json.dumps({
+                "path": "d8_levels", "seed": seed, "codes": cell,
+                "levels": stats["levels"],
+                "no_flow_share": float((codes == 0).float().mean()),
+                "topo_ms": ms, "us_per_level": 1e3 * ms / stats["levels"],
+                "card": card}), flush=True)
+
+
 def main():
     import torch
 
@@ -760,6 +803,9 @@ def main():
             continue
         if name == "stencils":
             stencils(dev, card)
+            continue
+        if name == "d8_levels":
+            d8_levels(dev, card)
             continue
         if name in ("walk_tiles", "resolve_tiles"):
             walk_tiles(dev, card, ("resolve_sweep",) if name ==
