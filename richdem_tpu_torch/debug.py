@@ -35,15 +35,19 @@ TRACE_FILE = "trace.json"
 #: layer's work: the fill (``ops.fill.fill_depressions_info``), D8 codes
 #: (``ops.flowdirs.d8_core``), D8 accumulation
 #: (``ops.accum.d8_accumulation_info``), slope and TWI
-#: (``ops.terrain.terrain_core``, ``methods.twi``), flow proportions
+#: (``ops.terrain.terrain_core``, ``ops.terrain.terrain_attribute``,
+#: ``methods.twi``), flow proportions
 #: (``ops.flowdirs.flow_proportions``), multi-flow accumulation
 #: (``ops.mfd.mfd_accumulation``), flat resolution
 #: (``ops.flats.resolve_flats_info``), watershed labels, Strahler order and
 #: upslope cells (``methods.watersheds_from_flowdirs``,
-#: ``methods.strahler_order``, ``methods.upslope_cells``).
+#: ``methods.strahler_order``, ``methods.upslope_cells``), D∞ angles
+#: (``ops.flowdirs.dinf_flowdirs``) and D∞ accumulation
+#: (``ops.accum.dinf_accumulation_from_angles``,
+#: ``ops.dinf.dinf_accumulation``).
 SPANS = ("rd.fill", "rd.d8", "rd.accum", "rd.terrain", "rd.props",
          "rd.mfd", "rd.flats", "rd.watersheds", "rd.strahler",
-         "rd.upslope")
+         "rd.upslope", "rd.dinf_dirs", "rd.dinf")
 _NO_SPAN = contextlib.nullcontext()
 
 

@@ -280,10 +280,11 @@ def dinf_accumulation_from_angles(angles, weights=None, no_data_mask=None,
     on every device (the reference's TPU path; its CPU path runs Jacobi
     over unsnapped proportions).  ``return_info`` adds ``(rotations,
     converged)``."""
-    a = as_tensor(angles, device)
-    code, p = dinf_two_tap(a)
-    return dinf_accumulation(code, p, weights, no_data_mask, max_rotations,
-                             return_info, depth)
+    with span("rd.dinf"):
+        a = as_tensor(angles, device)
+        code, p = dinf_two_tap(a)
+        return dinf_accumulation(code, p, weights, no_data_mask,
+                                 max_rotations, return_info, depth)
 
 
 def _inflow_step(acc, props):

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from richdem_tpu_torch._build import FLOW_TILE, Kernel, stream_handle
+from richdem_tpu_torch.debug import span
 from richdem_tpu_torch.ops.fill import _require_converged
 from richdem_tpu_torch.ops.flowdirs import OCTANT_DIRS, octants_per_radian
 from richdem_tpu_torch.ops.mfd import (mfd_sweep_plain, scan_window,
@@ -184,20 +185,22 @@ def dinf_accumulation(code, p, weights=None, no_data_mask=None,
 
     ``code``: a tensor (the work runs where it lives) or an array (moved to
     ``device``, as are ``p``, array weights and masks)."""
-    code = as_tensor(code, device)
-    p = as_tensor(p, code.device)
-    h, wd = code.shape
-    if weights is None:
-        weights = torch.ones((h, wd), dtype=torch.float32, device=code.device)
-    weights = as_tensor(weights, code.device).to(torch.float32)
-    if no_data_mask is not None:
-        no_data_mask = as_tensor(no_data_mask, code.device)
-        weights = torch.where(no_data_mask, 0.0, weights)
-    acc, rotations, done = dinf_accumulation_info(code, p, weights,
-                                                  max_rotations, depth)
-    _require_converged(done, "D-infinity accumulation", max_rotations)
-    if no_data_mask is not None:
-        acc = torch.where(no_data_mask, 0.0, acc)
-    if return_info:
-        return acc, rotations, done
-    return acc
+    with span("rd.dinf"):
+        code = as_tensor(code, device)
+        p = as_tensor(p, code.device)
+        h, wd = code.shape
+        if weights is None:
+            weights = torch.ones((h, wd), dtype=torch.float32,
+                                 device=code.device)
+        weights = as_tensor(weights, code.device).to(torch.float32)
+        if no_data_mask is not None:
+            no_data_mask = as_tensor(no_data_mask, code.device)
+            weights = torch.where(no_data_mask, 0.0, weights)
+        acc, rotations, done = dinf_accumulation_info(code, p, weights,
+                                                      max_rotations, depth)
+        _require_converged(done, "D-infinity accumulation", max_rotations)
+        if no_data_mask is not None:
+            acc = torch.where(no_data_mask, 0.0, acc)
+        if return_info:
+            return acc, rotations, done
+        return acc

@@ -399,8 +399,9 @@ def dinf_flowdirs(dem, no_data=None, cellsize=1.0, device="cuda"):
     """Continuous flow angles, radians counter-clockwise from East
     (Tarboton 1997); -1 NO_FLOW, -2 nodata.  ``dem``: a tensor (the work
     runs where it lives) or an array (moved to ``device``)."""
-    z = as_tensor(dem, device)
-    return _dinf_impl(z, nodata_like(z, no_data), cellsize)
+    with span("rd.dinf_dirs"):
+        z = as_tensor(dem, device)
+        return _dinf_impl(z, nodata_like(z, no_data), cellsize)
 
 
 #: D8 code at angle k·π/4: E, NE, N, NW, W, SW, S, SE

@@ -154,9 +154,10 @@ def terrain_attribute(dem, attrib, zscale=1.0, cellsize=1.0, no_data=None,
 
     ``dem``: a tensor (the work runs where it lives) or an array (moved to
     ``device``)."""
-    z = as_tensor(dem, device)
-    return terrain_fused(z.to(torch.float32), nodata_like(z, no_data),
-                          zscale, cellsize, attrib)
+    with span("rd.terrain"):
+        z = as_tensor(dem, device)
+        return terrain_fused(z.to(torch.float32), nodata_like(z, no_data),
+                             zscale, cellsize, attrib)
 
 
 def slope_riserun(dem, zscale=1.0, cellsize=1.0, no_data=None,

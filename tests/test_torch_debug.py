@@ -126,6 +126,22 @@ def _d8_props(z):
     return [rt.flow_proportions(z, "D8")]
 
 
+def _dinf_twi(z):
+    """The D∞ cell's step: ε-fill, angles, accumulation, slope and TWI
+    through the public entries."""
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops.fill import fill_depressions_info
+
+    filled, _, done = fill_depressions_info(z, eps=1e-2, max_iters=256)
+    assert done
+    angles = rt.dinf_flowdirs(filled)
+    acc, _, done = rt.dinf_accumulation_from_angles(angles,
+                                                    return_info=True)
+    assert done
+    slope = rt.terrain_attribute(filled, "slope_radians")
+    return [filled, angles, acc, slope, rt.twi(acc, slope)]
+
+
 def _basin_inputs(z):
     """The ε = 0 fill of a 16 × 24 corner of ``z`` (the plain walks take a
     Python loop a row), its D8 codes and nodata mask, the resolved codes,
@@ -162,7 +178,13 @@ PATHS = {"d8_pipeline": (_d8_pipeline, {"rd.fill": 1, "rd.d8": 1,
          "quinn": (_quinn, {"rd.fill": 1, "rd.props": 1, "rd.mfd": 1},
                    set()),
          "d8_props": (_d8_props, {"rd.props": 1, "rd.d8": 1},
-                      {("rd.props", "rd.d8")})}
+                      {("rd.props", "rd.d8")}),
+         # the accumulation's entry calls the two-tap one, and on the CPU
+         # the terrain attribute its plain version: each opens its span
+         "dinf_twi": (_dinf_twi, {"rd.fill": 1, "rd.dinf_dirs": 1,
+                                  "rd.dinf": 2, "rd.terrain": 3},
+                      {("rd.dinf", "rd.dinf"),
+                       ("rd.terrain", "rd.terrain")})}
 
 
 def _dem():
@@ -296,6 +318,63 @@ def test_a_basin_span_owns_every_operation_of_its_entry(entry, tmp_path):
                          for e in ops])
     assert ops and set(held) == {name}
     assert [s["name"] for s in _rd_spans(events)] == [name]
+
+
+#: The D∞ entries and the span each opens (the accumulation's entry opens
+#: it twice, once more in the two-tap entry it calls).
+DINF_ENTRIES = {"dinf_flowdirs": "rd.dinf_dirs",
+                "dinf_accumulation": "rd.dinf",
+                "dinf_accumulation_from_angles": "rd.dinf"}
+
+
+def _dinf_entry(entry, filled):
+    import richdem_tpu_torch as rt
+    from richdem_tpu_torch.ops.dinf import dinf_accumulation, dinf_two_tap
+
+    angles = rt.dinf_flowdirs(filled)
+    if entry == "dinf_flowdirs":
+        return lambda: rt.dinf_flowdirs(filled)
+    if entry == "dinf_accumulation":
+        code, p = dinf_two_tap(angles)
+        return lambda: dinf_accumulation(code, p, return_info=True)
+    return lambda: rt.dinf_accumulation_from_angles(angles,
+                                                    return_info=True)
+
+
+@pytest.mark.parametrize("entry", sorted(DINF_ENTRIES))
+def test_a_dinf_span_owns_every_operation_of_its_entry(entry, tmp_path):
+    """Every operator a D∞ entry runs, its rotations' transposes and
+    ``torch.equal`` included, lies in the span it opens."""
+    from perfbench import spans
+
+    name = DINF_ENTRIES[entry]
+    filled = _dinf_twi(_dem())[0]
+    events, out = _profiled_events(_dinf_entry(entry, filled), tmp_path)
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    held = spans.owners(_rd_spans(events),
+                        [((e.get("pid"), e.get("tid")), e["ts"])
+                         for e in ops])
+    assert ops and set(held) == {name}
+    assert {s["name"] for s in _rd_spans(events)} == {name}
+
+
+def test_the_dinf_steps_glue_is_all_spanned(tmp_path):
+    """No operator of the D∞ cell's step lies outside the program's spans,
+    and the accumulation's lie in ``rd.dinf``: a trace of the step on a
+    card leaves none of its glue unspanned."""
+    from perfbench import spans
+
+    z = _dem()
+    events, _ = _profiled_events(lambda: _dinf_twi(z), tmp_path)
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    held = spans.owners(_rd_spans(events),
+                        [((e.get("pid"), e.get("tid")), e["ts"])
+                         for e in ops])
+    assert [e["name"] for e, h in zip(ops, held) if h is None] == []
+    assert set(held) == {"rd.fill", "rd.dinf_dirs", "rd.dinf",
+                         "rd.terrain"}
+    equals = [h for e, h in zip(ops, held) if e["name"] == "aten::equal"]
+    assert equals and set(equals) == {"rd.dinf"}
 
 
 @pytest.mark.parametrize("name", ["rd.nope", "perfbench.window", "",
